@@ -1,0 +1,177 @@
+"""Serving bundles: a reference-layout ``model.pt`` plus a manifest.
+
+Counterpart of ``silent_speech_tpu/eval/export.py``. The JAX bundle ships
+StableHLO per time bucket; this one ships the weights, and the architecture
+is read back from their shapes. ``predict`` pads an utterance to the
+smallest covering bucket, as the JAX bundle does, and masks the padding out
+of attention with the utterance's length. Padding is not the same as an
+unpadded forward: the stride-1 conv of each ResBlock reads one frame past
+the end, which in a padded input is ``relu(bn(conv(0)))``, not zero.
+
+Bundle layout (``directory/``)::
+
+    manifest.json   kind, t_buckets, num_features, num_raw_channels,
+                    quantize (null), charset (recognition)
+    model.pt        reference-layout state dict
+
+CLI — export a reference-layout checkpoint, such as the ``model.pt`` the
+trainers write every epoch::
+
+    python -m silent_speech_tpu_torch.eval.export --models run/model.pt \
+        --output_directory serving/ [--recognition] [--t_buckets 256,512]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.encoder import EMGEncoder
+from ..text import CHARS
+from ..utils.device import resolve_device
+from .decode import greedy_ctc_decode
+
+_MANIFEST = "manifest.json"
+_WEIGHTS = "model.pt"
+
+DEFAULT_T_BUCKETS = (256, 512, 1024, 2048)
+KINDS = ("transduction", "recognition")
+
+# input dims are fixed: 14 features x 8 channels, 8 raw EMG channels
+N_FEATURES = 112
+N_RAW_CHANNELS = 8
+
+
+def _check_kind(model: EMGEncoder, kind: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if (model.w_aux is not None) != (kind == "transduction"):
+        raise ValueError(
+            f"a {kind} model has {'a' if kind == 'transduction' else 'no'} "
+            "phoneme head (w_aux); this checkpoint "
+            f"{'lacks' if model.w_aux is None else 'has'} one")
+
+
+def save_serving_bundle(model: EMGEncoder, kind: str, directory: str,
+                        t_buckets: Sequence[int] = DEFAULT_T_BUCKETS,
+                        charset: Optional[Sequence[str]] = None) -> str:
+    """Write ``model`` as a serving bundle of ``kind`` into ``directory``
+    and return the directory."""
+    _check_kind(model, kind)
+    for t in t_buckets:
+        if t <= 0 or t % 32:
+            raise ValueError(f"bucket {t} must be a positive multiple of 32")
+    os.makedirs(directory, exist_ok=True)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save(state, os.path.join(directory, _WEIGHTS))
+    manifest = {
+        "kind": kind,
+        "t_buckets": sorted(int(t) for t in t_buckets),
+        "num_features": N_FEATURES,
+        "num_raw_channels": N_RAW_CHANNELS,
+        "quantize": None,
+    }
+    if kind == "recognition":
+        manifest["charset"] = list(CHARS if charset is None else charset)
+    with open(os.path.join(directory, _MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return directory
+
+
+class ServingBundle:
+    """A loaded bundle: the encoder on ``device`` in ``dtype`` compute."""
+
+    def __init__(self, directory: str, device=None,
+                 dtype: torch.dtype = torch.bfloat16):
+        self.device = resolve_device(device)
+        with open(os.path.join(directory, _MANIFEST)) as f:
+            self.manifest = json.load(f)
+        self.kind = self.manifest["kind"]
+        if self.manifest.get("quantize") is not None:
+            raise ValueError("quantized bundles are not supported yet")
+        state = torch.load(os.path.join(directory, _WEIGHTS),
+                           map_location="cpu", weights_only=True)
+        self.model = EMGEncoder.from_state_dict(
+            state, compute_dtype=str(dtype).removeprefix("torch."))
+        _check_kind(self.model, self.kind)
+        self.model.to(self.device).eval()
+
+    @classmethod
+    def load(cls, directory: str, device=None,
+             dtype: torch.dtype = torch.bfloat16) -> "ServingBundle":
+        return cls(directory, device=device, dtype=dtype)
+
+    def _bucket(self, t: int) -> int:
+        for b in self.manifest["t_buckets"]:
+            if t <= b:
+                return b
+        raise ValueError(
+            f"utterance length {t} exceeds the largest exported bucket "
+            f"{self.manifest['t_buckets'][-1]}; re-export with a larger "
+            "t_buckets entry")
+
+    def predict(self, emg: np.ndarray, raw_emg: np.ndarray,
+                session_ids: Optional[np.ndarray] = None) -> np.ndarray:
+        """Solo-utterance inference: ``emg`` (T, num_features), ``raw_emg``
+        (T*8, raw_channels) → (T, 80) mel or (T, 38) CTC log-probs. The
+        encoder reads only ``raw_emg``; ``emg`` gives T."""
+        t = emg.shape[0]
+        b = self._bucket(t)
+        if session_ids is None and self.kind == "transduction":
+            # the JAX bundle's contract: a silent all-zeros substitute would
+            # give session-0 voice for every speaker once a model conditions
+            # on sessions
+            raise ValueError(
+                "transduction bundles require session_ids (the model "
+                "conditions on the session embedding)")
+        raw_p = np.zeros((1, b * 8, raw_emg.shape[1]), np.float32)
+        raw_p[0, : t * 8] = raw_emg
+        raw = torch.from_numpy(raw_p).to(self.device)
+        with torch.inference_mode():
+            out = self.model(raw, valid_len=t)
+            if self.kind == "transduction":
+                out = out[0]  # (mel, phoneme_logits) → mel
+            else:
+                out = torch.log_softmax(out, dim=-1)
+            return out[0, :t].cpu().numpy()
+
+    def decode_greedy(self, log_probs: np.ndarray) -> str:
+        """Greedy CTC transcript from ``predict`` output (recognition)."""
+        if self.kind != "recognition":
+            raise ValueError("decode_greedy needs a recognition bundle")
+        chars = self.manifest["charset"]
+        ids = greedy_ctc_decode(log_probs, blank_id=len(chars))
+        return "".join(chars[i] for i in ids)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> str:
+    ap = argparse.ArgumentParser(
+        description="Export a reference-layout model.pt as a serving "
+                    "bundle for the PyTorch port.")
+    ap.add_argument("--models", nargs=1, required=True,
+                    help="the reference-layout model.pt to export")
+    ap.add_argument("--output_directory", required=True)
+    ap.add_argument("--recognition", action="store_true",
+                    help="export a recognition model (default: "
+                         "transduction)")
+    ap.add_argument("--t_buckets",
+                    default=",".join(str(t) for t in DEFAULT_T_BUCKETS),
+                    help="time buckets in frames, multiples of 32")
+    args = ap.parse_args(argv)
+    state = torch.load(args.models[0], map_location="cpu", weights_only=True)
+    model = EMGEncoder.from_state_dict(state)
+    kind = "recognition" if args.recognition else "transduction"
+    out = save_serving_bundle(
+        model, kind, args.output_directory,
+        t_buckets=[int(t) for t in args.t_buckets.split(",")])
+    print(f"wrote {kind} serving bundle → {out}")
+    return out
+
+
+if __name__ == "__main__":
+    main()
