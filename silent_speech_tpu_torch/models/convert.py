@@ -10,18 +10,21 @@ Own copy of the mapping in the JAX package's ``models/convert.py``
 - relative tables (H, 2m−1, d_head) → (H, 2m−1, d_head, 1)
 
 The input is the tree with numpy leaves; the output loads into
-``models.encoder.EMGEncoder`` with ``strict=True``.
+``models.encoder.EMGEncoder`` with ``strict=True``. With ``batch_stats``
+None (a gradient tree, which has no statistics) the running statistics are
+left out.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 
-def jax_to_torch(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+def jax_to_torch(params: dict, batch_stats: Optional[dict] = None
+                 ) -> Dict[str, torch.Tensor]:
     out: Dict[str, np.ndarray] = {}
 
     def dense(prefix, p):
@@ -36,12 +39,16 @@ def jax_to_torch(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     def bn(prefix, p, s):
         out[f"{prefix}.weight"] = np.asarray(p["scale"])
         out[f"{prefix}.bias"] = np.asarray(p["bias"])
+        if s is None:
+            return
         out[f"{prefix}.running_mean"] = np.asarray(s["mean"])
         out[f"{prefix}.running_var"] = np.asarray(s["var"])
         out[f"{prefix}.num_batches_tracked"] = np.asarray(0)
 
     for i in range(3):
-        blk_p, blk_s = params[f"res{i}"], batch_stats[f"res{i}"]
+        blk_p = params[f"res{i}"]
+        blk_s = (dict.fromkeys(("bn1", "bn2", "res_norm")) if batch_stats
+                 is None else batch_stats[f"res{i}"])
         rp = f"conv_blocks.{i}"
         conv(f"{rp}.conv1", blk_p["conv1"])
         conv(f"{rp}.conv2", blk_p["conv2"])

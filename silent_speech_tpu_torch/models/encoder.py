@@ -1,5 +1,5 @@
-"""The EMG encoder, eval forward: conv downsampling stack, transformer,
-heads.
+"""The EMG encoder, eval and train forward: conv downsampling stack,
+transformer, heads.
 
 Counterpart of ``silent_speech_tpu/models/encoder.py``. The public layout
 is the JAX one, raw EMG (B, 8T, C) in and (B, T, out) frames out; the convs
@@ -8,6 +8,13 @@ layers compute in the compute dtype, BatchNorm in float32 with its running
 statistics, the heads emit float32. Parameter names are the reference's
 (``conv_blocks.{i}.conv1|bn1|conv2|bn2|residual_path|res_norm``,
 ``w_raw_in``, ``transformer.layers.{i}``, ``w_out``, ``w_aux``).
+
+The train forward (``train=True``) follows the JAX module's
+``train=True``: one random left shift of the packed raw chunks per batch
+(``shift_raw``), BatchNorm on batch statistics with flax's running update
+(``running = 0.9·running + 0.1·batch``, the biased batch variance; torch's
+``F.batch_norm`` would take the unbiased one), and the transformer's
+dropout. All randomness comes from the caller's CPU ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -29,9 +36,42 @@ def _conv(conv: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype
                     conv.stride, conv.padding)
 
 
-def _bn(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
-                        bn.weight, bn.bias, False, 0.0, bn.eps)
+BN_MOMENTUM = 0.9  # flax's momentum: the running statistics' decay
+
+
+def _bn(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """BatchNorm over (B, L) of channels-first x, in float32. In training,
+    on the batch's statistics (var = E[x²] − E[x]², clipped at 0), and the
+    running statistics move toward them in place."""
+    x32 = x.float()
+    if not train:
+        return F.batch_norm(x32, bn.running_mean, bn.running_var,
+                            bn.weight, bn.bias, False, 0.0, bn.eps)
+    mean = x32.mean((0, 2))
+    var = ((x32 * x32).mean((0, 2)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        for running, batch in ((bn.running_mean, mean),
+                               (bn.running_var, var)):
+            running.copy_(BN_MOMENTUM * running
+                          + (1.0 - BN_MOMENTUM) * batch)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x32 - mean[:, None]) * mul[:, None] + bn.bias[:, None]
+
+
+def shift_raw(x_raw: torch.Tensor, r: int) -> torch.Tensor:
+    """Shift every raw chunk (N, L, C) left by r samples along L, the last
+    r samples becoming zeros (JAX ``jnp.roll(x, -r, axis=1)`` then the
+    tail mask)."""
+    t = x_raw.shape[1]
+    keep = (torch.arange(t, device=x_raw.device) < t - r)[None, :, None]
+    return torch.where(keep, torch.roll(x_raw, -r, dims=1),
+                       torch.zeros((), dtype=x_raw.dtype,
+                                   device=x_raw.device))
+
+
+def draw_shift(generator: torch.Generator) -> int:
+    """The batch's raw shift r in [0, 8)."""
+    return int(torch.randint(0, 8, (), generator=generator))
 
 
 class ResBlock(nn.Module):
@@ -51,14 +91,15 @@ class ResBlock(nn.Module):
             self.residual_path = nn.Conv1d(in_channels, channels, 1, stride)
             self.res_norm = nn.BatchNorm1d(channels, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x (B, C, L) → (B, channels, L/stride), float32."""
         cdt = self.compute_dtype
-        h = F.relu(_bn(self.bn1, _conv(self.conv1, x, cdt)))
-        h = _bn(self.bn2, _conv(self.conv2, h, cdt))
+        h = F.relu(_bn(self.bn1, _conv(self.conv1, x, cdt), train))
+        h = _bn(self.bn2, _conv(self.conv2, h, cdt), train)
         res = x
         if self.residual_path is not None:
-            res = _bn(self.res_norm, _conv(self.residual_path, x, cdt))
+            res = _bn(self.res_norm, _conv(self.residual_path, x, cdt),
+                      train)
         return F.relu(h + res)
 
 
@@ -82,24 +123,35 @@ class EMGEncoder(nn.Module):
         self.transformer = TransformerEncoder(
             cfg.num_layers, d_model=d, n_head=cfg.num_heads,
             dim_feedforward=cfg.dim_feedforward,
-            max_dist=cfg.relative_positional_distance, compute_dtype=cdt)
+            max_dist=cfg.relative_positional_distance, compute_dtype=cdt,
+            dropout=cfg.dropout)
         self.w_out = nn.Linear(d, num_outs)
         self.w_aux = (nn.Linear(d, num_aux_outs)
                       if num_aux_outs is not None else None)
 
-    def forward(self, x_raw: torch.Tensor, valid_len: Optional[int] = None
+    def forward(self, x_raw: torch.Tensor, valid_len: Optional[int] = None,
+                *, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """x_raw (B, 8T, C) → (B, T, num_outs) float32, plus (B, T,
         num_aux_outs) when the model has the phoneme head. ``valid_len``
         is the utterance's length in frames inside a padded T (default
         T); padding frames and utterance frames do not attend to each
-        other."""
+        other. ``train=True`` is the training forward and needs a CPU
+        ``generator`` for its shift and dropout draws."""
         cdt = self.compute_dtype
+        if train:
+            if generator is None:
+                raise ValueError("the training forward needs a generator")
+            if self.cfg.shift_augment:
+                x_raw = shift_raw(x_raw, draw_shift(generator))
+        else:
+            generator = None
         h = x_raw.transpose(1, 2)
         for block in self.conv_blocks:
-            h = block(h)
+            h = block(h, train)
         h = linear(self.w_raw_in, h.transpose(1, 2), cdt)
-        h = self.transformer(h, valid_len)
+        h = self.transformer(h, valid_len, generator)
         out = linear(self.w_out, h, cdt).float()
         if self.w_aux is None:
             return out

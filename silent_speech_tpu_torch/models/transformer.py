@@ -1,4 +1,4 @@
-"""Post-norm relative-position transformer encoder, eval forward.
+"""Post-norm relative-position transformer encoder, eval and train forward.
 
 Counterpart of ``silent_speech_tpu/models/transformer.py``. Parameter names
 and shapes are the reference's (``w_q``/``w_k``/``w_v`` (H, D, d_head),
@@ -6,6 +6,13 @@ and shapes are the reference's (``w_q``/``w_k``/``w_v`` (H, D, d_head),
 (H, 2m−1, d_head, 1), ``linear1``, ``linear2``, ``norm1``, ``norm2``), so a
 reference ``model.pt`` loads as it is. The projections are plain matmuls in
 the compute dtype; the attention core is ``ops.rel_attention``.
+
+In training each layer drops, at the configured rate: the attention
+probabilities (inside the attention kernels, uint32 threshold), the
+residual branches of ``norm1`` and ``norm2`` and the FFN's ReLU output
+(uint8 threshold, ``ops/dropout.py``). Every site draws its own seed per
+step from the caller's CPU ``torch.Generator``, so drawing never waits for
+the card.
 """
 
 from __future__ import annotations
@@ -17,8 +24,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import dropout_threshold, relu_dropout
 from ..ops.fused_norm import FusedResidualNorm
-from ..ops.rel_attention import rel_attention
+from ..ops.rel_attention import attention_drop_threshold, rel_attention
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One dropout seed in [0, 2³¹) from a CPU generator."""
+    return int(torch.randint(0, 2 ** 31, (), generator=generator))
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype
@@ -40,7 +53,7 @@ class LearnedRelativePositionalEmbedding(nn.Module):
 
 class RelativePositionalAttention(nn.Module):
     def __init__(self, d_model: int, n_head: int, max_dist: int,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, dropout: float = 0.0):
         super().__init__()
         if d_model % n_head:
             raise ValueError(f"d_model {d_model} is not a multiple of "
@@ -48,6 +61,7 @@ class RelativePositionalAttention(nn.Module):
         d_head = d_model // n_head
         self.max_dist = max_dist
         self.compute_dtype = compute_dtype
+        self.drop_threshold = attention_drop_threshold(dropout)
         self.w_q = nn.Parameter(torch.empty(n_head, d_model, d_head))
         self.w_k = nn.Parameter(torch.empty(n_head, d_model, d_head))
         self.w_v = nn.Parameter(torch.empty(n_head, d_model, d_head))
@@ -55,17 +69,22 @@ class RelativePositionalAttention(nn.Module):
         self.relative_positional = LearnedRelativePositionalEmbedding(
             n_head, max_dist, d_head)
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None
+    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """x (B, T, D) → (B, T, D); ``valid_len`` masks the padding
-        beyond the utterance out of attention."""
+        beyond the utterance out of attention; a ``generator`` (training)
+        turns the probability dropout on."""
         cdt = self.compute_dtype
         xc = x.to(cdt)
         q, k, v = (torch.einsum("btd,hda->bhta", xc, w.to(cdt)).contiguous()
                    for w in (self.w_q, self.w_k, self.w_v))
         rel_emb = self.relative_positional.embeddings[..., 0].to(cdt)
+        seed, thresh = 0, 0
+        if generator is not None and self.drop_threshold:
+            seed, thresh = draw_seed(generator), self.drop_threshold
         o = rel_attention(q, k, v, rel_emb.contiguous(), self.max_dist,
-                          valid_len)
+                          valid_len, seed, thresh)
         out = torch.einsum("bhta,haf->btf", o, self.w_o.to(cdt))
         return out.to(x.dtype)
 
@@ -75,22 +94,29 @@ class TransformerEncoderLayer(nn.Module):
     ``transformer.py:43-60``)."""
 
     def __init__(self, d_model: int, n_head: int, dim_feedforward: int,
-                 max_dist: int, compute_dtype: torch.dtype):
+                 max_dist: int, compute_dtype: torch.dtype,
+                 dropout: float = 0.0):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.drop_threshold = dropout_threshold(dropout)
         self.self_attn = RelativePositionalAttention(
-            d_model, n_head, max_dist, compute_dtype)
+            d_model, n_head, max_dist, compute_dtype, dropout)
         self.norm1 = FusedResidualNorm(d_model)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = FusedResidualNorm(d_model)
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None
+    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         cdt = self.compute_dtype
-        x = self.norm1(x, self.self_attn(x, valid_len), cdt)
-        h = linear(self.linear2, F.relu(linear(self.linear1, x, cdt)), cdt)
-        return self.norm2(x, h, cdt)
+        t = self.drop_threshold if generator is not None else 0
+        seeds = [draw_seed(generator) if t else 0 for _ in range(3)]
+        x = self.norm1(x, self.self_attn(x, valid_len, generator), cdt,
+                       seeds[0], t)
+        h = relu_dropout(linear(self.linear1, x, cdt), seeds[1], t)
+        h = linear(self.linear2, h, cdt)
+        return self.norm2(x, h, cdt, seeds[2], t)
 
 
 class TransformerEncoder(nn.Module):
@@ -100,10 +126,11 @@ class TransformerEncoder(nn.Module):
             TransformerEncoderLayer(**layer_kwargs)
             for _ in range(num_layers))
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None
+    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, valid_len)
+            x = layer(x, valid_len, generator)
         return x
 
 

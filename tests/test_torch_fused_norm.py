@@ -8,7 +8,8 @@ import jax.numpy as jnp
 import torch
 
 from silent_speech_tpu.ops.fused_norm import residual_dropout_ln
-from silent_speech_tpu_torch.ops.fused_norm import residual_ln
+from silent_speech_tpu_torch.ops.fused_norm import (
+    residual_dropout_ln as port_residual_dropout_ln)
 
 
 @pytest.mark.parametrize("dtype,atol", [
@@ -27,9 +28,10 @@ def test_matches_jax_residual_ln(dtype, atol):
                               jax.random.PRNGKey(0), 0, jnp.asarray(gamma),
                               jnp.asarray(beta), 1e-6)
     tdt = getattr(torch, dtype)
-    ours = residual_ln(torch.from_numpy(x).to(tdt),
-                       torch.from_numpy(h).to(tdt),
-                       torch.from_numpy(gamma), torch.from_numpy(beta))
+    ours = port_residual_dropout_ln(torch.from_numpy(x).to(tdt),
+                                    torch.from_numpy(h).to(tdt), 0, 0,
+                                    torch.from_numpy(gamma),
+                                    torch.from_numpy(beta))
     assert ours.dtype == tdt
     np.testing.assert_allclose(ours.float().numpy(),
                                np.asarray(ref, np.float32), atol=atol)

@@ -8,10 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from silent_speech_tpu_torch.config import ModelConfig
+from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
+                                            TransductionTrainConfig)
 from silent_speech_tpu_torch.eval import export, server
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.ops import build
+from silent_speech_tpu_torch.train.transduction import TransductionTrainer
 from silent_speech_tpu_torch.utils.device import card_info, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -64,7 +66,8 @@ def test_cuda_entry_points_raise_without_a_card(no_card, bundle_dir):
                  lambda: card_info(),
                  lambda: export.ServingBundle.load(bundle_dir),
                  lambda: server.main(["--recognition_bundle", bundle_dir,
-                                      "--port", "0"])):
+                                      "--port", "0"]),
+                 lambda: TransductionTrainer()):
         with pytest.raises(RuntimeError, match="CUDA was requested"):
             call()
 
@@ -76,6 +79,27 @@ def test_cpu_is_taken_only_when_asked(bundle_dir):
                         np.zeros((80, 8), np.float32))
     assert bundle.device.type == "cpu" and lp.shape == (10, 38)
     assert next(bundle.model.parameters()).device.type == "cpu"
+
+
+def test_trainer_runs_on_the_cpu_only_when_asked():
+    cfg = ModelConfig(model_size=32, num_layers=1, num_heads=2,
+                      dim_feedforward=64, relative_positional_distance=4,
+                      compute_dtype="float32")
+    trainer = TransductionTrainer(
+        cfg, DataConfig(seq_len=20, fixed_shapes=False),
+        TransductionTrainConfig(), device="cpu")
+    model = trainer.init_state(0)
+    assert trainer.device.type == "cpu"
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    rng = np.random.default_rng(0)
+    ex = {"emg": np.zeros((30, 112), np.float32),
+          "raw_emg": rng.normal(size=(240, 8)).astype(np.float32),
+          "session_ids": np.zeros(30, np.int64), "silent": False,
+          "text_int": np.zeros(3, np.int64),
+          "audio_features": rng.normal(size=(30, 80)).astype(np.float32),
+          "phonemes": rng.integers(0, 48, size=30)}
+    out = trainer.train_step(trainer._pack([ex]), 1e-3)
+    assert out.loss.device.type == "cpu" and np.isfinite(out.loss.item())
 
 
 def test_kernel_build_raises_on_a_missing_source():

@@ -18,9 +18,11 @@ TINY = dict(model_size=64, num_layers=2, num_heads=2, dim_feedforward=128,
 
 
 def tiny_config(compute_dtype="float32"):
+    # dropout and shift off, as in jax_encoder
     return ModelConfig(model_size=64, num_layers=2, num_heads=2,
                        dim_feedforward=128, relative_positional_distance=16,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, dropout=0.0,
+                       shift_augment=False)
 
 
 def jax_encoder(num_outs, num_aux_outs, fused=False, dtype=jnp.float32):
