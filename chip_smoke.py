@@ -43,6 +43,7 @@ line describing each kernel, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -66,7 +67,8 @@ PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor cores
 KERNEL_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
 KERNEL_CASES = ((1, 256, 256), (1, 1024, 1024), (1, 2048, 2048),
                 (1, 256, 37), (1, 64, 64))
-DROP_CASES = ((4, 200), (120, 200), (1, 1024))   # (B, T), L = T, rate 0.2
+TRAIN_BT = (120, 200)              # attention (B, T) of the training step
+DROP_CASES = ((4, 200), TRAIN_BT, (1, 1024))    # (B, T), L = T, rate 0.2
 # backward vs autograd through the plain version, relative to each
 # gradient's largest entry: f32 sums in another order (dK, dV, dE with
 # atomics in a run-to-run order); bf16 adds one rounding of each output
@@ -260,6 +262,7 @@ def check_kernels():
         rel_attention_plain)
 
     drop = attention_drop_threshold(0.2)
+    train_case = (*TRAIN_BT, drop)
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
@@ -279,11 +282,11 @@ def check_kernels():
             if not ok:
                 raise AssertionError(f"rel_attention_fwd disagrees with its "
                                      f"plain version: {name} B={b} T={t}")
-            key = ("rel_attention_fwd", name)
-            errs[key] = max(errs.get(key, 0.0), err)
+            if (b, t, thresh) == train_case:
+                errs[("rel_attention_fwd", name)] = err
 
-        for thresh in (0, drop):
-            q, k, v, e = attention_inputs(4, 200, dtype, seed=5)
+        for b, t, thresh in ((4, 200, 0), (4, 200, drop), train_case):
+            q, k, v, e = attention_inputs(b, t, dtype, seed=5)
             g = torch.Generator(device="cuda").manual_seed(6)
             dout = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
             grads = rel_attention_bwd(q, k, v, e, dout, 100, None, 13,
@@ -291,19 +294,22 @@ def check_kernels():
             torch.cuda.synchronize()
             xs = [x.detach().requires_grad_() for x in (q, k, v, e)]
             rel_attention_plain(*xs, 100, None, 13, thresh).backward(dout)
+            case_err = 0.0
             for gname, ours, x in zip(("dQ", "dK", "dV", "dE"), grads, xs):
                 err = (ours.float() - x.grad.float()).abs().max().item()
                 tol = BWD_RTOL[name] * x.grad.float().abs().max().item()
                 ok = ours.dtype == x.dtype and err <= tol
-                log(f"[kernel] rel_attention_bwd {name} B=4 H=8 T=200 "
+                log(f"[kernel] rel_attention_bwd {name} B={b} H=8 T={t} "
                     f"d_h=96 m=100 dropout {'0.2' if thresh else '0'} "
                     f"{gname}: max_abs_err {err:.3g} (tolerance {tol:.3g} "
                     f"= {BWD_RTOL[name]} x max|ref|) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"rel_attention_bwd disagrees with "
-                                         f"autograd: {name} {gname}")
-                key = ("rel_attention_bwd", name)
-                errs[key] = max(errs.get(key, 0.0), err)
+                                         f"autograd: {name} B={b} {gname}")
+                case_err = max(case_err, err)
+            if (b, t, thresh) == train_case:
+                errs[("rel_attention_bwd", name)] = case_err
+            del q, k, v, e, dout, grads, xs
 
     # DTW at prof_dtw.py's shape; utterances 0-3 are the n ∈ {1, 2} edges
     rng = np.random.default_rng(SEED)
@@ -334,9 +340,6 @@ def check_kernels():
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("dtw_align disagrees with its plain version")
-        abs_err = (cost - ref_cost).abs()[finite].max().item()
-        errs[("dtw_align", "any")] = max(errs.get(("dtw_align", "any"), 0.0),
-                                         abs_err)
     return errs
 
 
@@ -348,9 +351,7 @@ def serve(card, work):
     from silent_speech_tpu_torch.eval.server import ServingServer
     from silent_speech_tpu_torch.models import transformer
     from silent_speech_tpu_torch.models.encoder import EMGEncoder
-    from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
-    from silent_speech_tpu_torch.ops.rel_attention import (
-        rel_attention, rel_attention_bwd, rel_attention_plain)
+    from silent_speech_tpu_torch.ops.rel_attention import rel_attention_plain
 
     server = None
     try:
@@ -387,8 +388,7 @@ def serve(card, work):
                              {**body, "session_ids": [0] * t}))
             requests.append((t, "/v1/recognize", body))
 
-        rel_attention.launches = rel_attention_bwd.launches = 0
-        dtw_align_batch.launches = 0
+        reset_launches()
         latency, replies = {}, {}
         for t, route, body in requests:
             for rep in range(1 + TIMED_REQUESTS):
@@ -398,14 +398,13 @@ def serve(card, work):
                     latency.setdefault((route, t), []).append(
                         time.perf_counter() - t0)
             replies[(route, t)] = reply
-        launches = {"rel_attention_fwd": rel_attention.launches,
-                    "rel_attention_bwd": rel_attention_bwd.launches,
-                    "dtw_align": dtw_align_batch.launches}
+        launches = read_launches()
         n_requests = len(requests) * (1 + TIMED_REQUESTS)
         layers = bundles["transduction"].model.cfg.num_layers
         log(f"[serve] {n_requests} requests, launches {launches}")
         if launches != {"rel_attention_fwd": layers * n_requests,
-                        "rel_attention_bwd": 0, "dtw_align": 0}:
+                        "rel_attention_bwd": 0, "dtw_align": 0,
+                        "dtw_align_dp_only": 0}:
             raise AssertionError(
                 f"expected {layers} forward attention launches per request "
                 f"and no other kernel, got {launches} for {n_requests}")
@@ -425,14 +424,11 @@ def serve(card, work):
         # attention on the card (the kernel swapped out, not counted)
         t_cmp = REQUEST_T[2]
         emg, raw = utterance(t_cmp, seed=SEED + t_cmp)
-        transformer.rel_attention = rel_attention_plain
-        try:
+        with swapped(transformer, "rel_attention", rel_attention_plain):
             plain = {
                 "/v1/transduce": bundles["transduction"].predict(
                     emg, raw, np.zeros(t_cmp, np.int64)),
                 "/v1/recognize": bundles["recognition"].predict(emg, raw)}
-        finally:
-            transformer.rel_attention = rel_attention
         for route, ref in plain.items():
             key = "mel" if route == "/v1/transduce" else "log_probs"
             served = np.asarray(replies[(route, t_cmp)][key], np.float32)
@@ -483,13 +479,38 @@ def serve(card, work):
     finally:
         if server is not None:
             server.stop()
-    return launches["rel_attention_fwd"]
+    return launches
 
 
-def _swap(module, name, fn):
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """Replace the module global ``module.name`` with ``fn`` in the block."""
     old = getattr(module, name)
     setattr(module, name, fn)
-    return old
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def reset_launches():
+    from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
+    from silent_speech_tpu_torch.ops.rel_attention import (
+        rel_attention, rel_attention_bwd)
+
+    rel_attention.launches = rel_attention_bwd.launches = 0
+    dtw_align_batch.launches = dtw_align_batch.dp_only_launches = 0
+
+
+def read_launches():
+    from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
+    from silent_speech_tpu_torch.ops.rel_attention import (
+        rel_attention, rel_attention_bwd)
+
+    return {"rel_attention_fwd": rel_attention.launches,
+            "rel_attention_bwd": rel_attention_bwd.launches,
+            "dtw_align": dtw_align_batch.launches,
+            "dtw_align_dp_only": dtw_align_batch.dp_only_launches}
 
 
 def train(card):
@@ -501,8 +522,7 @@ def train(card):
     from silent_speech_tpu_torch.models import transformer
     from silent_speech_tpu_torch.ops.dtw import (
         dtw_align_batch, dtw_align_batch_plain)
-    from silent_speech_tpu_torch.ops.rel_attention import (
-        rel_attention, rel_attention_bwd, rel_attention_plain)
+    from silent_speech_tpu_torch.ops.rel_attention import rel_attention_plain
     from silent_speech_tpu_torch.train import losses
     from silent_speech_tpu_torch.train.schedule import warmup_lr
     from silent_speech_tpu_torch.train.transduction import (
@@ -530,8 +550,7 @@ def train(card):
 
     n_steps = WARMUP_STEPS + sum(TRIAL_STEPS)
     order = [batches[i % len(batches)] for i in range(n_steps)]
-    rel_attention.launches = rel_attention_bwd.launches = 0
-    dtw_align_batch.launches = 0
+    reset_launches()
     step_losses, trials, step = [], [], 0
     for trial, n in enumerate((WARMUP_STEPS, *TRIAL_STEPS)):
         torch.cuda.synchronize()
@@ -544,18 +563,18 @@ def train(card):
         torch.cuda.synchronize()
         if trial:  # trial 0 is the warm-up
             trials.append(n / (time.perf_counter() - t0))
-    launches = {"rel_attention_fwd": rel_attention.launches,
-                "rel_attention_bwd": rel_attention_bwd.launches,
-                "dtw_align": dtw_align_batch.launches}
+    launches = read_launches()
     layers = trainer.model_cfg.num_layers
     expected = {"rel_attention_fwd": layers * n_steps,
                 "rel_attention_bwd": layers * n_steps,
-                "dtw_align": sum(1 for b in order if b.num_silent)}
+                "dtw_align": sum(1 for b in order if b.num_silent),
+                "dtw_align_dp_only": 0}  # a timing mode, off the path
     log(f"[train] {n_steps} steps, launches {launches} (expected "
         f"{expected})")
-    if launches != expected or not all(expected.values()):
+    if launches != expected or not all(expected[k] for k in (
+            "rel_attention_fwd", "rel_attention_bwd", "dtw_align")):
         raise AssertionError(f"training launches {launches}, expected "
-                             f"{expected}, each above 0")
+                             f"{expected}, each kernel of the path above 0")
     loss_values = torch.stack(step_losses).cpu().numpy()
     log(f"[train] losses {np.round(loss_values, 4).tolist()}")
     if not np.isfinite(loss_values).all():
@@ -599,21 +618,17 @@ def train(card):
         captured["args"] = (costs.clone(), n1.clone(), n2.clone())
         return dtw_align_batch(costs, n1, n2, **kw)
 
+    swaps = {"kernels": [(losses, "dtw_align_batch", capture)],
+             "plain": [(losses, "dtw_align_batch", dtw_align_batch_plain),
+                       (transformer, "rel_attention", rel_attention_plain)]}
     runs = {}
-    for mode in ("kernels", "plain"):
+    for mode, mode_swaps in swaps.items():
         tr = TransductionTrainer(ModelConfig(compute_dtype="float32"))
         tr.init_state(SEED)
-        if mode == "kernels":
-            old = [_swap(losses, "dtw_align_batch", capture)]
-        else:
-            old = [_swap(losses, "dtw_align_batch", dtw_align_batch_plain),
-                   _swap(transformer, "rel_attention", rel_attention_plain)]
-        try:
+        with contextlib.ExitStack() as stack:
+            for swap in mode_swaps:
+                stack.enter_context(swapped(*swap))
             out = tr.train_step(batch, cfg.learning_rate)
-        finally:
-            _swap(losses, "dtw_align_batch", old[0])
-            if mode == "plain":
-                _swap(transformer, "rel_attention", old[1])
         params = dict(tr.model.named_parameters())
         runs[mode] = (out, {n: params[n].grad.detach().clone()
                             for n in COMPARED_GRADS})
@@ -675,7 +690,7 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
         if t == HEADLINE_T:
             serve_ms = ms
 
-    b, t = 120, 200
+    b, t = TRAIN_BT
     q, k, v, e = attention_inputs(b, t, torch.bfloat16, seed=8)
     fwd_ms = cuda_time_ms(
         lambda: rel_attention(q, k, v, e, 100, None, 3, drop), iters=20)
@@ -705,6 +720,20 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
     costs, n1, n2 = dtw_inputs
     costs = costs.to(torch.bfloat16)  # stored as the bf16 step stores it
     kk, t1, _ = costs.shape
+    align, cost = dtw_align_batch(costs, n1, n2)
+    dp_align, dp_cost = dtw_align_batch(costs, n1, n2, dp_only=True)
+    ref_align, ref_cost = dtw_align_batch_plain(costs, n1, n2)
+    dtw_err = (cost - ref_cost).abs().max().item()
+    dp_err = (dp_cost - ref_cost).abs().max().item()
+    rows = int((align != ref_align).any(1).sum())
+    log(f"[kernel] dtw_align bf16 costs K={kk} T={t1} (the training batch's "
+        f"silent slice): alignment rows differing {rows}, path cost "
+        f"max_abs_err {dtw_err:.3g}, dp_only {dp_err:.3g} (tolerance 1e-5 "
+        f"relative)")
+    if rows or int(dp_align.abs().sum()) or not max(dtw_err, dp_err) <= (
+            1e-5 * ref_cost.abs().max().item()):
+        raise AssertionError("dtw_align disagrees with its plain version on "
+                             "the training batch's costs")
     dtw_ms = cuda_time_ms(lambda: dtw_align_batch(costs, n1, n2), iters=10)
     dp_ms = cuda_time_ms(lambda: dtw_align_batch(costs, n1, n2,
                                                  dp_only=True), iters=10)
@@ -721,14 +750,17 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
         f"({dtw_b[1]}), {dtw_b[0] / dtw_ms:.2%} of bound")
 
     shape = f"B={b} H=8 T={t} d_h=96 m=100 bf16 dropout 0.2"
+
+    def launches(name):
+        return {"launches": serve_launches[name] + train_launches[name],
+                "launches_by_path": {"serve": serve_launches[name],
+                                     "train": train_launches[name]}}
+
     return [
         {"name": "rel_attention_fwd", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/rel_attention_fwd.cu",
          "replaces": "silent_speech_tpu/ops/pallas/rel_attention.py:386",
-         "shape": shape,
-         "launches": serve_launches + train_launches["rel_attention_fwd"],
-         "launches_by_path": {"serve": serve_launches,
-                              "train": train_launches["rel_attention_fwd"]},
+         "shape": shape, **launches("rel_attention_fwd"),
          "max_abs_err": errs[("rel_attention_fwd", "bfloat16")],
          "max_abs_err_f32": errs[("rel_attention_fwd", "float32")],
          "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fwd_bound[0],
@@ -737,8 +769,7 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
         {"name": "rel_attention_bwd", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/rel_attention_bwd.cu",
          "replaces": "silent_speech_tpu/ops/pallas/rel_attention.py:414",
-         "shape": shape,
-         "launches": train_launches["rel_attention_bwd"],
+         "shape": shape, **launches("rel_attention_bwd"),
          "max_abs_err": errs[("rel_attention_bwd", "bfloat16")],
          "max_abs_err_f32": errs[("rel_attention_bwd", "float32")],
          "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
@@ -746,17 +777,16 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
         {"name": "dtw_align", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/dtw.cu",
          "replaces": "silent_speech_tpu/ops/pallas/dtw_kernel.py:209",
-         "shape": f"K={kk} T={t1} bf16 costs",
-         "launches": train_launches["dtw_align"],
-         "max_abs_err": errs[("dtw_align", "any")],
+         "shape": f"K={kk} T={t1} bf16 costs", **launches("dtw_align"),
+         "max_abs_err": dtw_err,
          "ms": dtw_ms, "plain_ms": dtw_plain, "bound_ms": dtw_b[0],
          "bound_by": dtw_b[1], "library_ms": None},
         {"name": "dtw_align_dp_only", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/dtw.cu",
          "replaces": "tools/prof_dtw.py:136",
          "shape": f"K={kk} T={t1} bf16 costs",
-         "launches": 0, "on_main_path": False,
-         "max_abs_err": errs[("dtw_align", "any")],
+         **launches("dtw_align_dp_only"), "on_main_path": False,
+         "max_abs_err": dp_err,
          "ms": dp_ms, "plain_ms": dp_plain, "bound_ms": dtw_b[0],
          "bound_by": dtw_b[1], "library_ms": None},
     ]
