@@ -12,8 +12,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. hold each kernel against its plain PyTorch version on the card: the
    attention forward (bf16 and f32, serving shapes and the training shape
    with dropout), the attention backward (bf16 and f32, dropout off and
-   on) and the DTW alignment with its DP-only mode (prof_dtw's shape and
-   the n ∈ {1, 2} edge cases);
+   on; bf16 runs four staged WMMA kernels, and two bf16 calls at the
+   training shape must be bit-equal) and the DTW alignment with its
+   DP-only mode (prof_dtw's shape and the n ∈ {1, 2} edge cases);
 3. serve: init a full-width transduction model and a full-width
    recognition model from a seed, save each as a reference-layout
    ``model.pt``, export both with the export CLI, load the bundles on the
@@ -33,7 +34,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    versions swapped in (same seeds, so the same dropout masks);
 5. time the requests per bucket, the forward per bucket, the training
    steps (median of 3 synced trials) and each kernel per launch at the
-   main path's shapes against its bound and its plain version, and
+   main path's shapes against its bound and its plain version (the bf16
+   attention backward also stage by stage), and
    profile one forward and one training step (device busy time, idle
    share, kernels by time).
 
@@ -71,7 +73,8 @@ TRAIN_BT = (120, 200)              # attention (B, T) of the training step
 DROP_CASES = ((4, 200), TRAIN_BT, (1, 1024))    # (B, T), L = T, rate 0.2
 # backward vs autograd through the plain version, relative to each
 # gradient's largest entry: f32 sums in another order (dK, dV, dE with
-# atomics in a run-to-run order); bf16 adds one rounding of each output
+# atomics in a run-to-run order); bf16 rounds P', dS and dR to bf16 where
+# the JAX kernel does, and each output once
 BWD_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
 HEADLINE_T = 1024
 # a full bf16 forward with the kernel vs the plain attention: per-layer
@@ -304,11 +307,26 @@ def check_kernels():
                     f"{gname}: max_abs_err {err:.3g} (tolerance {tol:.3g} "
                     f"= {BWD_RTOL[name]} x max|ref|) {'ok' if ok else 'FAIL'}")
                 if not ok:
+                    if dtype == torch.bfloat16:
+                        locate_bwd_stage(q, k, v, e, dout, thresh)
                     raise AssertionError(f"rel_attention_bwd disagrees with "
                                          f"autograd: {name} B={b} {gname}")
                 case_err = max(case_err, err)
             if (b, t, thresh) == train_case:
                 errs[("rel_attention_bwd", name)] = case_err
+                if dtype == torch.bfloat16:
+                    again = rel_attention_bwd(q, k, v, e, dout, 100, None,
+                                              13, thresh)
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(grads, again))
+                    log(f"[kernel] rel_attention_bwd bf16 B={b} H=8 T={t} "
+                        f"dropout 0.2: two calls on the same inputs "
+                        f"bit-equal in dQ, dK, dV and dE: {same} "
+                        f"{'ok' if same else 'FAIL'}")
+                    if not same:
+                        raise AssertionError("the bf16 attention backward "
+                                             "is not deterministic")
+                    del again
             del q, k, v, e, dout, grads, xs
 
     # DTW at prof_dtw.py's shape; utterances 0-3 are the n ∈ {1, 2} edges
@@ -341,6 +359,27 @@ def check_kernels():
         if not ok:
             raise AssertionError("dtw_align disagrees with its plain version")
     return errs
+
+
+def locate_bwd_stage(q, k, v, e, dout, thresh):
+    """Log how far stage A's scratch (P', dS, dR) of the bf16 backward lies
+    from the staged mirror's, to tell stage A's faults from the later
+    stages'."""
+    import torch
+    from silent_speech_tpu_torch.ops.rel_attention import (
+        _staged_bwd, rel_attention_bwd_staged_plain)
+
+    t, m = q.shape[2], (e.shape[1] + 1) // 2
+    _, stages, scratch = _staged_bwd(q, k, v, e, dout, m, t, 13, thresh)
+    stages[0][1]()
+    _, ref = rel_attention_bwd_staged_plain(
+        q, k, v, e, dout, m, None, 13, thresh, store_dtype=torch.bfloat16,
+        return_scratch=True)
+    for name, ours, r in zip(("P'", "dS", "dR"), scratch, ref):
+        ours = ours[:, :, :t, :r.shape[-1]].float()
+        log(f"[kernel]   stage A scratch {name} vs the staged mirror: "
+            f"max_abs_err {(ours - r).abs().max().item():.3g} of "
+            f"max|ref| {r.abs().max().item():.3g}")
 
 
 def serve(card, work):
@@ -672,8 +711,8 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
     from silent_speech_tpu_torch.ops.dtw import (
         dtw_align_batch, dtw_align_batch_plain)
     from silent_speech_tpu_torch.ops.rel_attention import (
-        attention_drop_threshold, rel_attention, rel_attention_bwd,
-        rel_attention_plain)
+        STAGES, _staged_bwd, attention_drop_threshold, rel_attention,
+        rel_attention_bwd, rel_attention_plain)
 
     drop = attention_drop_threshold(0.2)
     for t in (256, 1024, 2048):
@@ -703,6 +742,22 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
     bwd_ms = cuda_time_ms(
         lambda: rel_attention_bwd(q, k, v, e, dout, 100, None, 3, drop),
         iters=10)
+    _, stages, _ = _staged_bwd(q, k, v, e, dout, 100, t, 3, drop)
+    stages_ms = {name: cuda_time_ms(launch, iters=10)
+                 for name, launch in stages}
+    del stages
+    log(f"[time] {card} | rel_attention_bwd bf16 B={b} H=8 T={t} d_h=96 "
+        f"m=100 dropout 0.2, by stage: "
+        + ", ".join(f"{n} {stages_ms[n]:.4f} ms" for n in STAGES)
+        + f" (sum {sum(stages_ms.values()):.4f} ms)")
+    q32, k32, v32, e32, dout32 = (x.float() for x in (q, k, v, e, dout))
+    bwd_f32_ms = cuda_time_ms(
+        lambda: rel_attention_bwd(q32, k32, v32, e32, dout32, 100, None, 3,
+                                  drop), iters=5)
+    del q32, k32, v32, e32, dout32
+    log(f"[time] {card} | rel_attention_bwd f32 B={b} H=8 T={t} d_h=96 "
+        f"m=100 dropout 0.2 (single kernel, off the bf16 step's path): "
+        f"{bwd_f32_ms:.4f} ms/launch")
     xs = [x.detach().requires_grad_() for x in (q, k, v, e)]
     out = rel_attention_plain(*xs, 100, None, 3, drop)
     bwd_plain = cuda_time_ms(lambda: torch.autograd.grad(
@@ -767,12 +822,14 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
          "bound_by": fwd_bound[1], "library_ms": None,
          "serve_ms_T1024": serve_ms},
         {"name": "rel_attention_bwd", "route": "cuda",
-         "source": "silent_speech_tpu_torch/csrc/rel_attention_bwd.cu",
+         "source": "silent_speech_tpu_torch/csrc/rel_attention_bwd_wmma.cu",
+         "source_f32": "silent_speech_tpu_torch/csrc/rel_attention_bwd.cu",
          "replaces": "silent_speech_tpu/ops/pallas/rel_attention.py:414",
          "shape": shape, **launches("rel_attention_bwd"),
          "max_abs_err": errs[("rel_attention_bwd", "bfloat16")],
          "max_abs_err_f32": errs[("rel_attention_bwd", "float32")],
-         "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
+         "ms": bwd_ms, "stages_ms": stages_ms, "ms_f32": bwd_f32_ms,
+         "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": None},
         {"name": "dtw_align", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/dtw.cu",

@@ -17,11 +17,14 @@ off the TPU (``_hash_bits``), so the kernels, the plain version and the
 JAX kernel in interpret mode draw the same mask.
 
 ``rel_attention`` launches ``csrc/rel_attention_fwd.cu`` for CUDA tensors,
-inside an autograd function whose backward launches
-``csrc/rel_attention_bwd.cu``; nothing quadratic is saved between them.
-CPU tensors take ``rel_attention_plain``, differentiated by autograd;
-nothing else selects the plain version. What bounds each kernel on the
-card is in its source's header.
+inside an autograd function whose backward launches the four staged WMMA
+kernels of ``csrc/rel_attention_bwd_wmma.cu`` for bf16 and the single
+kernel of ``csrc/rel_attention_bwd.cu`` for float32; nothing quadratic is
+saved between forward and backward. CPU tensors take
+``rel_attention_plain``, differentiated by autograd; nothing else selects
+the plain version. ``rel_attention_bwd_staged_plain`` mirrors the staged
+backward's arithmetic for the tests. What bounds each kernel on the card
+is in its source's header.
 """
 
 from __future__ import annotations
@@ -58,15 +61,12 @@ def attention_keep(b: int, h: int, t: int, seed: int, drop_threshold: int,
     return bits >= drop_threshold
 
 
-def rel_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        rel_emb: torch.Tensor, max_dist: int,
-                        valid_len: Optional[int] = None, seed: int = 0,
-                        drop_threshold: int = 0) -> torch.Tensor:
-    """The same function in plain PyTorch, computed in float32 and returned
-    in the input dtype. Materializes the (B, H, T, T) scores."""
+def _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold):
+    """P (the softmax of the masked scores) and P' (after the dropout), in
+    float32, (B, H, T, T)."""
     b, h, t, dh = q.shape
     m = max_dist
-    qf, kf, vf, ef = (x.float() for x in (q, k, v, rel_emb))
+    qf, kf, ef = (x.float() for x in (q, k, rel_emb))
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (1.0 / math.sqrt(dh))
     rel = torch.einsum("bhqd,hwd->bhqw", qf, ef)            # (B, H, T, 2m−1)
     pos = torch.arange(t, device=q.device)
@@ -77,10 +77,63 @@ def rel_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     visible = (off.abs() <= m - 1) & (side[None, :] == side[:, None])
     s = s.masked_fill(~visible, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    if drop_threshold:
-        keep = attention_keep(b, h, t, seed, drop_threshold, q.device)
-        p = torch.where(keep, p * _keep_scale(drop_threshold), 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    if not drop_threshold:
+        return p, p
+    keep = attention_keep(b, h, t, seed, drop_threshold, q.device)
+    return p, torch.where(keep, p * _keep_scale(drop_threshold), 0.0)
+
+
+def rel_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        rel_emb: torch.Tensor, max_dist: int,
+                        valid_len: Optional[int] = None, seed: int = 0,
+                        drop_threshold: int = 0) -> torch.Tensor:
+    """The same function in plain PyTorch, computed in float32 and returned
+    in the input dtype. Materializes the (B, H, T, T) scores."""
+    _, p = _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def unskew(ds: torch.Tensor, max_dist: int) -> torch.Tensor:
+    """dR[..., q, r] = dS[..., q, q + r − (m−1)], 0 where that key lies
+    outside [0, T): (..., T, T) → (..., T, 2m−1)."""
+    t = ds.shape[-1]
+    pos = torch.arange(t, device=ds.device)
+    key = pos[:, None] + torch.arange(2 * max_dist - 1,
+                                      device=ds.device)[None, :] \
+        - (max_dist - 1)
+    inside = (key >= 0) & (key < t)
+    dr = ds.gather(-1, key.clamp(0, t - 1).expand(*ds.shape[:-1], -1))
+    return torch.where(inside, dr, 0.0)
+
+
+def rel_attention_bwd_staged_plain(q, k, v, rel_emb, dout, max_dist: int,
+                                   valid_len: Optional[int] = None,
+                                   seed: int = 0, drop_threshold: int = 0,
+                                   store_dtype: Optional[torch.dtype] = None,
+                                   return_scratch: bool = False):
+    """The bf16 backward's four stages (``csrc/rel_attention_bwd_wmma.cu``)
+    in plain PyTorch, computed in float32: stage A's P', dS and dR, then
+    dK, dV (B), dQ (C) and dE (D) from them. With ``store_dtype``, P', dS
+    and dR are rounded to it where the kernel stores them. Returns (dQ, dK,
+    dV, dE) in the input dtypes and, with ``return_scratch``, also (P', dS,
+    dR) in float32, unpadded."""
+    dh = q.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    qf, kf, vf, ef, gf = (x.float() for x in (q, k, v, rel_emb, dout))
+    p, pp = _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold)
+    prod = pp * torch.einsum("bhqd,bhkd->bhqk", gf, vf)     # P' ⊙ dP
+    ds = prod - p * prod.sum(-1, keepdim=True)
+    if store_dtype is not None:
+        pp, ds = (x.to(store_dtype).float() for x in (pp, ds))
+    dr = unskew(ds, max_dist)
+    dq = (torch.einsum("bhqr,hrd->bhqd", dr, ef)
+          + scale * torch.einsum("bhqk,bhkd->bhqd", ds, kf))
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pp, gf)
+    de = torch.einsum("bhqr,bhqd->hrd", dr, qf)
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+             de.to(rel_emb.dtype))
+    return (grads, (pp, ds, dr)) if return_scratch else grads
 
 
 def _check(q, k, v, rel_emb, max_dist, valid_len, seed,
@@ -155,9 +208,14 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       max_dist: int, valid_len: Optional[int] = None,
                       seed: int = 0, drop_threshold: int = 0):
     """Gradients (dQ, dK, dV, dE) of ``rel_attention``'s output against
-    ``dout``, from ``csrc/rel_attention_bwd.cu`` (CUDA tensors only). dQ,
-    dK and dV come back in the input dtype, dE in ``rel_emb``'s; dK, dV
-    and dE (summed over the batch) accumulate in float32 with atomics."""
+    ``dout`` (CUDA tensors only), in the input dtype.
+
+    bfloat16 runs the four staged WMMA kernels of
+    ``csrc/rel_attention_bwd_wmma.cu`` (``_staged_bwd``): bf16 scratch, no
+    atomics, bit-equal from call to call. float32 runs the single kernel of
+    ``csrc/rel_attention_bwd.cu``, where dK, dV and dE (summed over the
+    batch) accumulate in float32 with atomics. A launch that fails
+    raises."""
     valid_len = _check(q, k, v, rel_emb, max_dist, valid_len, seed,
                        drop_threshold)
     if q.device.type != "cuda":
@@ -168,6 +226,13 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("dout must match q in shape, dtype and device")
     _check_kernel_input({"q": q, "k": k, "v": v, "rel_emb": rel_emb,
                          "dout": dout}, q.dtype)
+    if q.dtype == torch.bfloat16:
+        grads, stages, _ = _staged_bwd(q, k, v, rel_emb, dout, max_dist,
+                                       valid_len, seed, drop_threshold)
+        for _, launch in stages:
+            launch()
+        rel_attention_bwd.launches += 1
+        return grads
     b, h, t, dh = q.shape
     lib = _library("rel_attention_bwd")
     dq = torch.empty_like(q)
@@ -190,7 +255,64 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk32.to(q.dtype), dv32.to(q.dtype), de32.to(rel_emb.dtype)
 
 
-rel_attention_bwd.launches = 0  # kernel launches since the last reset
+rel_attention_bwd.launches = 0  # backward calls since the last reset
+
+STAGES = ("scores", "dkdv", "dq", "de")   # the bf16 backward's stages A-D
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _staged_bwd(q, k, v, rel_emb, dout, max_dist, valid_len, seed,
+                drop_threshold):
+    """Outputs, scratch and the stage launches of the bf16 backward, not
+    yet launched: ``(grads, [(stage name, launch), ...], (P', dS, dR))``.
+    Each launch runs on the current stream and raises if its C function
+    returns an error. The scratch is padded to Tp = T and Wp = 2m−1
+    rounded up to 16; dE's partials take one group of batch rows per
+    slice of CTAs that fills the card about twice at three CTAs per SM."""
+    b, h, t, dh = q.shape
+    tp, wp = _round16(t), _round16(2 * max_dist - 1)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    groups = min(b, -(-6 * sms // (h * -(-wp // 64))))
+    groups = -(-b // -(-b // groups))     # no empty group
+    lib = _library("rel_attention_bwd_wmma")
+    dq, dk, dv, de = (torch.empty_like(x) for x in (q, k, v, rel_emb))
+    pp, ds = (torch.empty((b, h, tp, tp), dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    dr = torch.empty((b, h, tp, wp), dtype=q.dtype, device=q.device)
+    part = torch.empty((groups, h, wp, dh), dtype=torch.float32,
+                       device=q.device)
+    scale = 1.0 / math.sqrt(dh)
+    dims = (b, h, t, dh, max_dist)
+    # the tensors themselves, so that each stays alive while a launch uses it
+    args = {
+        "scores": (q, k, v, rel_emb, dout, pp, ds, dr, *dims, valid_len,
+                   scale, seed, drop_threshold, _keep_scale(drop_threshold)),
+        "dkdv": (q, dout, pp, ds, dk, dv, *dims, scale),
+        "dq": (k, rel_emb, ds, dr, dq, *dims, scale),
+        "de": (q, dr, part, de, *dims, groups),
+    }
+
+    def launcher(i, name):
+        fn = getattr(lib, f"rel_attention_bwd_wmma_{name}")
+
+        def launch():
+            with torch.cuda.device(q.device):
+                stream = torch.cuda.current_stream(q.device).cuda_stream
+                err = fn(*(x.data_ptr() if isinstance(x, torch.Tensor)
+                           else x for x in args[name]), stream)
+            if err != 0:
+                _raise_launch_error(
+                    f"rel_attention_bwd stage {name}", lib, err,
+                    lib.rel_attention_bwd_wmma_smem_bytes(i, t, dh,
+                                                          max_dist))
+        return launch
+
+    return ((dq, dk, dv, de),
+            [(name, launcher(i, name)) for i, name in enumerate(STAGES)],
+            (pp, ds, dr))
 
 
 class _RelAttention(torch.autograd.Function):
@@ -242,16 +364,27 @@ def _library(name: str) -> ctypes.CDLL:
     ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     f32 = ctypes.c_float
     if name == "rel_attention_fwd":
-        lib.rel_attention_fwd.argtypes = [
+        argtypes = {"rel_attention_fwd": [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32,
-            u32, u32, f32, i32, ptr]
-        lib.rel_attention_fwd.restype = i32
-    else:
-        lib.rel_attention_bwd.argtypes = [
+            u32, u32, f32, i32, ptr]}
+        smem_args = [i32, i32]
+    elif name == "rel_attention_bwd":
+        argtypes = {"rel_attention_bwd": [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-            i32, i32, i32, f32, u32, u32, f32, i32, ptr]
-        lib.rel_attention_bwd.restype = i32
-    getattr(lib, f"{name}_smem_bytes").argtypes = [i32, i32]
+            i32, i32, i32, f32, u32, u32, f32, i32, ptr]}
+        smem_args = [i32, i32]
+    else:
+        dims = [i32] * 5                                  # B, H, T, dh, m
+        argtypes = {f"{name}_scores": [ptr] * 8 + dims + [i32, f32, u32, u32,
+                                                          f32, ptr],
+                    f"{name}_dkdv": [ptr] * 6 + dims + [f32, ptr],
+                    f"{name}_dq": [ptr] * 5 + dims + [f32, ptr],
+                    f"{name}_de": [ptr] * 4 + dims + [i32, ptr]}
+        smem_args = [i32, i32, i32, i32]
+    for fn, types in argtypes.items():
+        getattr(lib, fn).argtypes = types
+        getattr(lib, fn).restype = i32
+    getattr(lib, f"{name}_smem_bytes").argtypes = smem_args
     getattr(lib, f"{name}_smem_bytes").restype = i32
     lib.rel_attention_error_string.argtypes = [i32]
     lib.rel_attention_error_string.restype = ctypes.c_char_p

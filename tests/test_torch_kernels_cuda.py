@@ -15,8 +15,8 @@ from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.ops.dtw import (dtw_align_batch,
                                              dtw_align_batch_plain)
 from silent_speech_tpu_torch.ops.rel_attention import (
-    attention_drop_threshold, rel_attention, rel_attention_bwd,
-    rel_attention_plain)
+    _staged_bwd, attention_drop_threshold, rel_attention, rel_attention_bwd,
+    rel_attention_bwd_staged_plain, rel_attention_plain)
 
 DROP = attention_drop_threshold(0.2)
 
@@ -92,6 +92,70 @@ def test_rel_attention_backward_kernel_matches_autograd(card, dtype, rel,
         scale = x.grad.float().abs().max().item()
         torch.testing.assert_close(o.float(), x.grad.float(), rtol=0,
                                    atol=rel * scale, msg=name)
+
+
+@pytest.mark.parametrize("dtype,rel", [
+    (torch.float32, 1e-4),
+    (torch.bfloat16, 1e-2),
+])
+@pytest.mark.parametrize("t,valid_len,m", [
+    (37, 20, 100),   # T not a multiple of 16, the whole matrix in window
+    (37, 20, 8),     # and a band narrower than T
+    (300, 250, 20),  # several key tiles per band
+])
+def test_rel_attention_backward_kernel_ragged_shapes(card, dtype, rel, t,
+                                                     valid_len, m):
+    q, k, v, e = _inputs(t, dtype, seed=5, b=2, m=m)
+    g = torch.Generator().manual_seed(6)
+    dout = torch.randn(q.shape, generator=g).to("cuda", dtype)
+    ours = rel_attention_bwd(q, k, v, e, dout, m, valid_len, 3, DROP)
+    xs = [x.detach().requires_grad_() for x in (q, k, v, e)]
+    rel_attention_plain(*xs, m, valid_len, 3, DROP).backward(dout)
+    for name, o, x in zip(("dq", "dk", "dv", "de"), ours, xs):
+        scale = x.grad.float().abs().max().item()
+        torch.testing.assert_close(o.float(), x.grad.float(), rtol=0,
+                                   atol=rel * scale, msg=name)
+
+
+def test_rel_attention_backward_bf16_is_bit_equal_between_calls(card):
+    q, k, v, e = _inputs(200, torch.bfloat16, seed=8, b=4)
+    g = torch.Generator().manual_seed(9)
+    dout = torch.randn(q.shape, generator=g).to("cuda", torch.bfloat16)
+    first = rel_attention_bwd(q, k, v, e, dout, 100, None, 5, DROP)
+    second = rel_attention_bwd(q, k, v, e, dout, 100, None, 5, DROP)
+    for name, a, b in zip(("dq", "dk", "dv", "de"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_attention_backward_counts_one_launch_per_call(card, dtype):
+    q, k, v, e = _inputs(64, dtype, b=1)
+    before = rel_attention_bwd.launches
+    for _ in range(2):
+        rel_attention_bwd(q, k, v, e, torch.ones_like(q), 100)
+    assert rel_attention_bwd.launches == before + 2
+
+
+def test_rel_attention_backward_bf16_scratch_matches_the_staged_mirror(card):
+    t, m, valid_len = 200, 100, 150
+    q, k, v, e = _inputs(t, torch.bfloat16, seed=10, b=2, m=m)
+    g = torch.Generator().manual_seed(11)
+    dout = torch.randn(q.shape, generator=g).to("cuda", torch.bfloat16)
+    _, stages, scratch = _staged_bwd(q, k, v, e, dout, m, valid_len, 4, DROP)
+    stages[0][1]()          # stage A alone: P', dS and dR
+    _, ref = rel_attention_bwd_staged_plain(
+        q, k, v, e, dout, m, valid_len, 4, DROP, store_dtype=torch.bfloat16,
+        return_scratch=True)
+    w = 2 * m - 1
+    for name, ours, r in zip(("P'", "dS", "dR"), scratch, ref):
+        cols = w if name == "dR" else t
+        # both round the same f32 value to bf16; f32 sums in another order
+        # may flip the rounding of a cell by one step
+        torch.testing.assert_close(ours[:, :, :t, :cols].float(), r,
+                                   rtol=0, atol=1e-2 * r.abs().max().item(),
+                                   msg=name)
+        assert not ours[:, :, t:].float().abs().any(), name
+        assert not ours[:, :, :, cols:].float().abs().any(), name
 
 
 def test_autograd_runs_both_attention_kernels(card):
