@@ -10,10 +10,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. build every CUDA kernel from ``silent_speech_tpu_torch/csrc`` with nvcc,
    one process per source, all started together;
 2. hold each kernel against its plain PyTorch version on the card: the
-   attention forward (bf16 and f32, serving shapes and the training shape
-   with dropout), the attention backward (bf16 and f32, dropout off and
-   on; bf16 runs four staged WMMA kernels, and two bf16 calls at the
-   training shape must be bit-equal) and the DTW alignment with its
+   attention forward (bf16 runs one WMMA kernel, f32 the f32 one; serving
+   shapes and the training shape with dropout; two bf16 calls at the
+   training shape must be bit-equal), the attention backward (bf16 and
+   f32, dropout off and on; bf16 runs four staged WMMA kernels, f32 one
+   kernel and a fixed-order sum of its partials; two calls at the training
+   shape must be bit-equal in each dtype) and the DTW alignment with its
    DP-only mode (prof_dtw's shape and the n ∈ {1, 2} edge cases);
 3. serve: init a full-width transduction model and a full-width
    recognition model from a seed, save each as a reference-layout
@@ -35,7 +37,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 5. time the requests per bucket, the forward per bucket, the training
    steps (median of 3 synced trials) and each kernel per launch at the
    main path's shapes against its bound and its plain version (the bf16
-   attention backward also stage by stage), and
+   attention forward also by its device time per launch under the
+   profiler, the bf16 attention backward also stage by stage, both
+   attention kernels also in f32, and PyTorch's
+   scaled_dot_product_attention with the relative bias precomputed as a
+   yardstick for the bf16 forward, not the same function and never
+   called by the port), and
    profile one forward and one training step (device busy time, idle
    share, kernels by time).
 
@@ -65,18 +72,20 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor cores
             "float32": 67e12}      # f32 outside the tensor cores
 # kernel vs plain: both compute in f32; a bf16 output may differ by one
-# rounding step (2^-6 at |O| < 4)
+# rounding step (2^-6 at |O| < 4), and the bf16 kernel rounds P' to bf16
+# before ·V where the plain version does not
 KERNEL_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
 KERNEL_CASES = ((1, 256, 256), (1, 1024, 1024), (1, 2048, 2048),
                 (1, 256, 37), (1, 64, 64))
 TRAIN_BT = (120, 200)              # attention (B, T) of the training step
 DROP_CASES = ((4, 200), TRAIN_BT, (1, 1024))    # (B, T), L = T, rate 0.2
 # backward vs autograd through the plain version, relative to each
-# gradient's largest entry: f32 sums in another order (dK, dV, dE with
-# atomics in a run-to-run order); bf16 rounds P', dS and dR to bf16 where
-# the JAX kernel does, and each output once
+# gradient's largest entry: f32 sums in another order (dK, dV, dE as
+# per-tile partials summed in a fixed order); bf16 rounds P', dS and dR to
+# bf16 where the JAX kernel does, and each output once
 BWD_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
 HEADLINE_T = 1024
+FWD_KERNEL = "::fwd_kernel("    # csrc/rel_attention_fwd_wmma.cu in a trace
 # a full bf16 forward with the kernel vs the plain attention: per-layer
 # differences of one bf16 step compound over 6 layers
 SERVED_RTOL = 0.05
@@ -175,6 +184,51 @@ def dtw_bound(n1, n2, t1, item):
     k = len(n1)
     nbytes = cells * item + 8 * k + 4 * k * t1 + 4 * k
     return _bound(nbytes, 4 * cells, "float32")
+
+
+def device_ms_per_launch(fn, kernel: str, launches: int = 20) -> float:
+    """Median device time of one launch of the kernel whose profiler name
+    contains ``kernel``, over ``launches`` calls of ``fn`` under the
+    profiler: the kernel alone, where back-to-back launches from Python
+    measure the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    # the trace may miss a launch at its start; the median takes the rest
+    times = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and kernel in ev.name]
+    if not times:
+        raise AssertionError(f"the profiler saw no launch of {kernel}")
+    return float(np.median(times))
+
+
+def sdpa_yardstick_ms(q, k, v, e) -> float:
+    """ms of one ``scaled_dot_product_attention`` call on the same q, k, v,
+    with the skewed relative logits and the band mask as one precomputed
+    additive mask and no dropout: the nearest library call, timed as a
+    yardstick only (it computes Q·Eᵀ and the skew outside the timer)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, t, _ = q.shape
+    m = (e.shape[1] + 1) // 2
+    with torch.no_grad():
+        rel = torch.einsum("bhqd,hwd->bhqw", q.float(), e.float())
+        pos = torch.arange(t, device=q.device)
+        off = pos[None, :] - pos[:, None]
+        bias = rel.gather(-1, (off + m - 1).clamp(0, 2 * m - 2).expand(
+            b, h, t, t))
+        bias = bias.masked_fill(off.abs() > m - 1, float("-inf")).to(q.dtype)
+        del rel
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias), iters=20)
 
 
 def post(port: int, route: str, payload: dict) -> dict:
@@ -276,17 +330,36 @@ def check_kernels():
             out = rel_attention(q, k, v, e, 100, valid_len, 11, thresh)
             torch.cuda.synchronize()
             ref = rel_attention_plain(q, k, v, e, 100, valid_len, 11, thresh)
-            err = (out.float() - ref.float()).abs().max().item()
-            ok = err <= KERNEL_ATOL[name]
+            err = unrounded = (out.float() - ref.float()).abs().max().item()
+            bf16 = dtype == torch.bfloat16
+            if bf16:  # the plain mirror of the kernel: P' to bf16 before ·V
+                mirror = rel_attention_plain(q, k, v, e, 100, valid_len, 11,
+                                             thresh, store_dtype=dtype)
+                err = (out.float() - mirror.float()).abs().max().item()
+            ok = max(err, unrounded) <= KERNEL_ATOL[name]
             log(f"[kernel] rel_attention_fwd {name} B={b} T={t} "
                 f"L={valid_len} dropout {'0.2' if thresh else '0'}: "
-                f"max_abs_err {err:.3g} (tolerance {KERNEL_ATOL[name]}) "
+                f"max_abs_err {err:.3g}"
+                + (f", {unrounded:.3g} against the plain version with P' "
+                   f"unrounded" if bf16 else "")
+                + f" (tolerance {KERNEL_ATOL[name]}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"rel_attention_fwd disagrees with its "
                                      f"plain version: {name} B={b} T={t}")
             if (b, t, thresh) == train_case:
                 errs[("rel_attention_fwd", name)] = err
+                errs[("rel_attention_fwd_unrounded", name)] = unrounded
+                if bf16:
+                    again = rel_attention(q, k, v, e, 100, valid_len, 11,
+                                          thresh)
+                    same = torch.equal(out, again)
+                    log(f"[kernel] rel_attention_fwd bf16 B={b} H=8 T={t} "
+                        f"dropout 0.2: two calls on the same inputs "
+                        f"bit-equal: {same} {'ok' if same else 'FAIL'}")
+                    if not same:
+                        raise AssertionError("the bf16 attention forward "
+                                             "is not deterministic")
 
         for b, t, thresh in ((4, 200, 0), (4, 200, drop), train_case):
             q, k, v, e = attention_inputs(b, t, dtype, seed=5)
@@ -314,19 +387,17 @@ def check_kernels():
                 case_err = max(case_err, err)
             if (b, t, thresh) == train_case:
                 errs[("rel_attention_bwd", name)] = case_err
-                if dtype == torch.bfloat16:
-                    again = rel_attention_bwd(q, k, v, e, dout, 100, None,
-                                              13, thresh)
-                    same = all(torch.equal(x, y)
-                               for x, y in zip(grads, again))
-                    log(f"[kernel] rel_attention_bwd bf16 B={b} H=8 T={t} "
-                        f"dropout 0.2: two calls on the same inputs "
-                        f"bit-equal in dQ, dK, dV and dE: {same} "
-                        f"{'ok' if same else 'FAIL'}")
-                    if not same:
-                        raise AssertionError("the bf16 attention backward "
-                                             "is not deterministic")
-                    del again
+                again = rel_attention_bwd(q, k, v, e, dout, 100, None, 13,
+                                          thresh)
+                same = all(torch.equal(x, y) for x, y in zip(grads, again))
+                log(f"[kernel] rel_attention_bwd {name} B={b} H=8 T={t} "
+                    f"dropout 0.2: two calls on the same inputs bit-equal "
+                    f"in dQ, dK, dV and dE: {same} "
+                    f"{'ok' if same else 'FAIL'}")
+                if not same:
+                    raise AssertionError(f"the {name} attention backward "
+                                         f"is not deterministic")
+                del again
             del q, k, v, e, dout, grads, xs
 
     # DTW at prof_dtw.py's shape; utterances 0-3 are the n ∈ {1, 2} edges
@@ -718,25 +789,39 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
     for t in (256, 1024, 2048):
         q, k, v, e = attention_inputs(1, t, torch.bfloat16, seed=7)
         ms = cuda_time_ms(lambda: rel_attention(q, k, v, e, 100, t))
+        dev_ms = device_ms_per_launch(
+            lambda: rel_attention(q, k, v, e, 100, t), FWD_KERNEL)
         plain_ms = cuda_time_ms(
             lambda: rel_attention_plain(q, k, v, e, 100, t), iters=10)
         bound_ms, bound_by = attention_bound(1, 8, t, 96, 100, t,
                                              "bfloat16")
         log(f"[time] {card} | rel_attention_fwd bf16 B=1 H=8 T={t} d_h=96 "
-            f"m=100 (serving): kernel {ms:.4f} ms/launch, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-            f"{bound_ms / ms:.2%} of bound")
+            f"m=100 (serving): kernel {ms:.4f} ms/launch back to back "
+            f"(the wrapper's host time included), {dev_ms:.4f} ms device time "
+            f"per launch (profiler), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / dev_ms:.2%} of "
+            f"bound")
         if t == HEADLINE_T:
-            serve_ms = ms
+            serve_ms, serve_dev_ms = ms, dev_ms
 
     b, t = TRAIN_BT
     q, k, v, e = attention_inputs(b, t, torch.bfloat16, seed=8)
     fwd_ms = cuda_time_ms(
         lambda: rel_attention(q, k, v, e, 100, None, 3, drop), iters=20)
+    fwd_dev_ms = device_ms_per_launch(
+        lambda: rel_attention(q, k, v, e, 100, None, 3, drop), FWD_KERNEL)
+    log(f"[time] {card} | rel_attention_fwd bf16 B={b} H=8 T={t} (training): "
+        f"{fwd_dev_ms:.4f} ms device time per launch (profiler)")
     fwd_plain = cuda_time_ms(
         lambda: rel_attention_plain(q, k, v, e, 100, None, 3, drop),
         iters=5)
     fwd_bound = attention_bound(b, 8, t, 96, 100, t, "bfloat16")
+    sdpa_ms = sdpa_yardstick_ms(q, k, v, e)
+    log(f"[time] {card} | yardstick: torch scaled_dot_product_attention "
+        f"bf16 B={b} H=8 T={t} d_h=96, the skewed relative bias and the "
+        f"band mask precomputed as one (B, H, T, T) bf16 mask, dropout off "
+        f"(not the same function; the port never calls it): {sdpa_ms:.4f} "
+        f"ms/call against the kernel's {fwd_ms:.4f} ms")
     g = torch.Generator(device="cuda").manual_seed(9)
     dout = torch.randn(q.shape, device="cuda", generator=g).to(q.dtype)
     bwd_ms = cuda_time_ms(
@@ -751,13 +836,19 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
         + ", ".join(f"{n} {stages_ms[n]:.4f} ms" for n in STAGES)
         + f" (sum {sum(stages_ms.values()):.4f} ms)")
     q32, k32, v32, e32, dout32 = (x.float() for x in (q, k, v, e, dout))
+    fwd_f32_ms = cuda_time_ms(
+        lambda: rel_attention(q32, k32, v32, e32, 100, None, 3, drop),
+        iters=10)
+    log(f"[time] {card} | rel_attention_fwd f32 B={b} H=8 T={t} d_h=96 "
+        f"m=100 dropout 0.2 (csrc/rel_attention_fwd.cu, off the bf16 "
+        f"step's path): {fwd_f32_ms:.4f} ms/launch")
     bwd_f32_ms = cuda_time_ms(
         lambda: rel_attention_bwd(q32, k32, v32, e32, dout32, 100, None, 3,
                                   drop), iters=5)
     del q32, k32, v32, e32, dout32
     log(f"[time] {card} | rel_attention_bwd f32 B={b} H=8 T={t} d_h=96 "
-        f"m=100 dropout 0.2 (single kernel, off the bf16 step's path): "
-        f"{bwd_f32_ms:.4f} ms/launch")
+        f"m=100 dropout 0.2 (kernel and fixed-order sum of its partials, "
+        f"off the bf16 step's path): {bwd_f32_ms:.4f} ms/launch")
     xs = [x.detach().requires_grad_() for x in (q, k, v, e)]
     out = rel_attention_plain(*xs, 100, None, 3, drop)
     bwd_plain = cuda_time_ms(lambda: torch.autograd.grad(
@@ -813,14 +904,20 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
 
     return [
         {"name": "rel_attention_fwd", "route": "cuda",
-         "source": "silent_speech_tpu_torch/csrc/rel_attention_fwd.cu",
+         "source": "silent_speech_tpu_torch/csrc/rel_attention_fwd_wmma.cu",
+         "source_f32": "silent_speech_tpu_torch/csrc/rel_attention_fwd.cu",
          "replaces": "silent_speech_tpu/ops/pallas/rel_attention.py:386",
          "shape": shape, **launches("rel_attention_fwd"),
          "max_abs_err": errs[("rel_attention_fwd", "bfloat16")],
+         "max_abs_err_unrounded_plain": errs[("rel_attention_fwd_unrounded",
+                                              "bfloat16")],
          "max_abs_err_f32": errs[("rel_attention_fwd", "float32")],
-         "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fwd_bound[0],
-         "bound_by": fwd_bound[1], "library_ms": None,
-         "serve_ms_T1024": serve_ms},
+         "ms": fwd_ms, "device_ms": fwd_dev_ms, "ms_f32": fwd_f32_ms,
+         "plain_ms": fwd_plain,
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+         "library_ms": None, "sdpa_yardstick_ms": sdpa_ms,
+         "serve_ms_T1024": serve_ms,
+         "serve_device_ms_T1024": serve_dev_ms},
         {"name": "rel_attention_bwd", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/rel_attention_bwd_wmma.cu",
          "source_f32": "silent_speech_tpu_torch/csrc/rel_attention_bwd.cu",

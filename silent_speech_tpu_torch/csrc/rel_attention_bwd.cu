@@ -1,41 +1,47 @@
-// Relative-position attention backward for Hopper (sm_90a).
+// Relative-position attention backward for Hopper (sm_90a), float32.
 //
-// Replaces the backward of the TPU kernel `fused_rel_attention`
-// (silent_speech_tpu/ops/pallas/rel_attention.py, `_bwd` -> pl.pallas_call,
-// body `_bwd_kernel`). Flash-style recompute: nothing quadratic is saved
-// by the forward. Each CTA rebuilds its band's scores S, P = softmax(S)
-// and the dropout keep mask (from the same counter hash and seed as the
-// forward), then, with P' = P * keep * drop_scale:
+// Replaces, for float32 inputs, the backward of the TPU kernel
+// `fused_rel_attention` (silent_speech_tpu/ops/pallas/rel_attention.py,
+// `_bwd` -> pl.pallas_call at :414, body `_bwd_kernel` at :267); bfloat16
+// inputs, the training step's, run the staged WMMA kernels of
+// rel_attention_bwd_wmma.cu. Flash-style recompute: nothing quadratic is
+// saved by the forward. Each CTA rebuilds its band's scores S, P =
+// softmax(S) and the dropout keep mask (from the same counter hash and
+// seed as the forward), then, with P' = P * keep * drop_scale:
 //
-//   dV[k] += sum_q P'[q,k] dO[q]
+//   dV[k]  = sum_q P'[q,k] dO[q]
 //   dP     = dO . V^T
 //   dS     = P' (.) dP - P (.) D,   D[q] = sum_k P'[q,k] dP[q,k]
 //   dQ[q]  = scale * sum_k dS[q,k] K[k] + sum_r dR[q,r] E[r]
-//   dK[k] += scale * sum_q dS[q,k] Q[q]
-//   dE[r] += sum_b sum_q dR[q,r] Q[q]
+//   dK[k]  = scale * sum_q dS[q,k] Q[q]
+//   dE[r]  = sum_b sum_q dR[q,r] Q[q]
 //
 // where dR[q, r] = dS[q, q + r - (m-1)] is the unskewed dS, zero where that
 // key lies outside [0, T) (the TPU kernel's `col < 2m-1` guard).
 //
 // Design: the band pass of rel_attention.cuh (one CTA per 64-row query
-// tile, band scores in shared memory). D takes a first pass over the V
+// tile n, band scores in shared memory). D takes a first pass over the V
 // chunks, dV and dS a second one (dP is recomputed, not stored); dS then
 // overwrites P in place. dR is never materialized: dQ and dE read dS at
 // the skewed index. A query row belongs to one CTA, so dQ is written
-// directly; a key lies in the bands of up to ~5 tiles and a relative slot
-// in every tile of every batch row, so dK, dV (f32, B x H x T x dh) and dE
-// (f32, H x (2m-1) x dh) accumulate with atomicAdd. The order of those
-// f32 sums changes from run to run: dK and dV agree with a sequential sum
-// to a few f32 ulps, dE (~480 terms per element at the training shape)
-// to ~1e-6 relative.
+// directly. A key lies in the bands of several tiles and a relative slot
+// in every tile of every batch row, so each CTA writes its share of dK
+// and dV (its band rows) and of dE (every slot) into f32 partial buffers
+// indexed by (b, h, n), and reduce_kernel sums them in a fixed order: dK
+// and dV by key over the tiles whose band covers it, in tile order, dE
+// over (b, n) in order. No atomics, so two calls on the same inputs give
+// bit-equal results, as the TPU kernel's sequential grid does. Every
+// product is f32 FMA on the CUDA cores, so the route keeps full f32
+// precision (its tolerance against autograd is 1e-4 x max|ref|).
 //
-// What bounds it on the card. At the training shape (B=120, H=8, T=200,
-// d_h=96, m=100, bf16) the function reads Q, K, V, dO and writes dQ, dK,
-// dV (~258 MB, ~77 us at 3.35 TB/s) and needs ~2.5x the forward's band
-// work (~45 GFLOP, ~45 us on the bf16 tensor cores), so bytes bound it.
-// This kernel runs ~9 band products per CTA on the f32 CUDA cores, one
-// ~195 KB CTA per SM, so it is latency- and FMA-bound. wgmma, TMA staging
-// and a key-tile pass in place of the atomics are the next steps.
+// What bounds it on the card. At the training shape in f32 (B=120, H=8,
+// T=200, d_h=96, m=100) the function reads Q, K, V, E, dO and writes dQ,
+// dK, dV, dE (~516 MB, ~0.15 ms at 3.35 TB/s) and needs ~2.7x the
+// forward's band work (~44 GFLOP, ~0.66 ms at the 67 TFLOP/s f32 peak
+// outside the tensor cores), so operations bound it. This kernel runs ~9
+// band products per CTA, one ~195 KB CTA per SM, and is latency- and
+// FMA-bound; the partials (~1.1 GB at that shape) add traffic on top. It
+// serves the f32 step check and f32 callers, off the bf16 training step.
 
 #include "rel_attention.cuh"
 
@@ -57,15 +63,19 @@ __host__ __device__ inline size_t smem_bytes(int dh, int m) {
   return sizeof(float) * floats + sizeof(unsigned) * BQ * mask_words(m);
 }
 
-template <typename T>
+// Partials: dkp and dvp (B, H, NT, lds, dh), row j of tile n being key
+// k_lo(n) + j; dep (B, H, NT, 2m-1, dh). NT = gridDim.x.
 __global__ void __launch_bounds__(NTHREADS)
-rel_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ e,
-                         const T* __restrict__ dout, T* __restrict__ dq,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         float* __restrict__ de, int H, int T_len, int dh,
-                         int m, int valid_len, float scale, unsigned seed,
-                         unsigned drop_threshold, float drop_scale) {
+rel_attention_bwd_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ e,
+                         const float* __restrict__ dout,
+                         float* __restrict__ dq, float* __restrict__ dkp,
+                         float* __restrict__ dvp, float* __restrict__ dep,
+                         int H, int T_len, int dh, int m, int valid_len,
+                         float scale, unsigned seed, unsigned drop_threshold,
+                         float drop_scale) {
   extern __shared__ float smem[];
   const Band g(dh, m);
   const int mw = mask_words(m);
@@ -85,12 +95,14 @@ rel_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t head = ((size_t)b * H + h) * (size_t)T_len * dh;
-  const T* kh = k + head;
-  const T* vh = v + head;
-  const T* eh = e + (size_t)h * g.w * dh;
-  float* dkh = dk + head;
-  float* dvh = dv + head;
-  float* deh = de + (size_t)h * g.w * dh;
+  const float* kh = k + head;
+  const float* vh = v + head;
+  const float* eh = e + (size_t)h * g.w * dh;
+  // this CTA's partials: (b, h, tile)
+  const size_t part = ((size_t)b * H + h) * gridDim.x + blockIdx.x;
+  float* dkh = dkp + part * g.lds * dh;
+  float* dvh = dvp + part * g.lds * dh;
+  float* deh = dep + part * g.w * dh;
   const int ncol = dh / 16;
 
   const int k_lo = max(0, q0 - (m - 1));
@@ -178,7 +190,7 @@ rel_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < NCOL; ++c)
         if (c < ncol)
-          atomicAdd(&dvh[(size_t)(k_lo + j) * dh + tx + 16 * c], vacc[a][c]);
+          dvh[(size_t)j * dh + tx + 16 * c] = vacc[a][c];
     }
     __syncthreads();  // every read of this chunk's P is done
 
@@ -225,8 +237,7 @@ rel_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < NCOL; ++c)
         if (c < ncol)
-          atomicAdd(&dkh[(size_t)(k_lo + j) * dh + tx + 16 * c],
-                    kacc[a][c] * scale);
+          dkh[(size_t)j * dh + tx + 16 * c] = kacc[a][c] * scale;
     }
   }
 
@@ -292,7 +303,7 @@ rel_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NCOL; ++c)
       if (c < ncol)
-        dq[head + (size_t)qi * dh + tx + 16 * c] = from_f32<T>(qacc[a][c]);
+        dq[head + (size_t)qi * dh + tx + 16 * c] = qacc[a][c];
   }
 
   // dE: slots ty + 16a of each 64-slot chunk, columns tx + 16c.
@@ -326,29 +337,52 @@ rel_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < NCOL; ++c)
         if (c < ncol)
-          atomicAdd(&deh[(size_t)r * dh + tx + 16 * c], eacc[a][c]);
+          deh[(size_t)r * dh + tx + 16 * c] = eacc[a][c];
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* e,
-                   const void* dout, void* dq, float* dk, float* dv, float* de,
-                   int B, int H, int T_len, int dh, int m, int valid_len,
-                   float scale, unsigned seed, unsigned drop_threshold,
-                   float drop_scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dh, m);
-  cudaError_t err = cudaFuncSetAttribute(
-      rel_attention_bwd_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  rel_attention_bwd_kernel<T><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(e),
-      static_cast<const T*>(dout), static_cast<T*>(dq), dk, dv, de, H, T_len,
-      dh, m, valid_len, scale, seed, drop_threshold, drop_scale);
-  return cudaGetLastError();
+// dK and dV: each key's rows of the tiles whose band covers it, in tile
+// order; dE: each slot's rows over (b, tile) in order. One thread per
+// output element of dK and dV together, then of dE.
+__global__ void reduce_kernel(const float* __restrict__ dkp,
+                              const float* __restrict__ dvp,
+                              const float* __restrict__ dep,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              float* __restrict__ de, int B, int H, int T_len,
+                              int dh, int m, int n_tiles) {
+  const Band g(dh, m);
+  const size_t n_kv = (size_t)B * H * T_len * dh;
+  const size_t n_e = (size_t)H * g.w * dh;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < n_kv + n_e; idx += (size_t)gridDim.x * blockDim.x) {
+    if (idx < n_kv) {
+      const size_t bh = idx / ((size_t)T_len * dh);
+      const int key = (int)(idx / dh % T_len);
+      const int c = (int)(idx % dh);
+      float sk = 0.f, sv = 0.f;
+      for (int n = 0; n < n_tiles; ++n) {
+        const int k_lo = max(0, n * BQ - (m - 1));
+        const int k_hi = min(T_len, n * BQ + BQ + m - 1);
+        if (key < k_lo || key >= k_hi) continue;
+        const size_t at =
+            ((bh * n_tiles + n) * g.lds + (key - k_lo)) * dh + c;
+        sk += dkp[at];
+        sv += dvp[at];
+      }
+      dk[idx] = sk;
+      dv[idx] = sv;
+    } else {
+      const size_t i = idx - n_kv;
+      const int h = (int)(i / ((size_t)g.w * dh));
+      const size_t rc = i % ((size_t)g.w * dh);  // r * dh + c
+      float sum = 0.f;
+      for (int b = 0; b < B; ++b)
+        for (int n = 0; n < n_tiles; ++n)
+          sum += dep[(((size_t)b * H + h) * n_tiles + n) * g.w * dh + rc];
+      de[i] = sum;
+    }
+  }
 }
 
 }  // namespace
@@ -360,30 +394,55 @@ int rel_attention_bwd_smem_bytes(int dh, int m) {
   return (int)smem_bytes(dh, m);
 }
 
-// q, k, v, dout, dq: (B, H, T, dh) contiguous in bf16 when is_bf16, else
-// f32; e: (H, 2m-1, dh) in the same type. dk, dv: (B, H, T, dh) and de:
-// (H, 2m-1, dh), f32, zeroed by the caller; the kernel adds into them.
-// Launches on `stream` and returns the cudaError_t of the launch.
+// Elements of each partial buffer, for the shape (B, H, T, dh, m): dkp
+// and dvp take `which` = 0, dep `which` = 1.
+long long rel_attention_bwd_partial_elems(int which, int B, int H, int T_len,
+                                          int dh, int m) {
+  const Band g(dh, m);
+  const long long tiles = (long long)B * H * ((T_len + BQ - 1) / BQ);
+  return tiles * (which == 0 ? g.lds : g.w) * dh;
+}
+
+// q, k, v, dout, dq, dk, dv: (B, H, T, dh) contiguous f32; e, de: (H,
+// 2m-1, dh) contiguous f32. dkp, dvp, dep: f32 scratch of
+// rel_attention_bwd_partial_elems elements, written before they are read.
+// is_bf16 must be 0: bf16 inputs go to the rel_attention_bwd_wmma stages.
+// Launches both kernels on `stream` and returns the cudaError_t of the
+// launches.
 int rel_attention_bwd(const void* q, const void* k, const void* v,
                       const void* e, const void* dout, void* dq, void* dk,
-                      void* dv, void* de, int B, int H, int T_len, int dh,
-                      int m, int valid_len, float scale, unsigned seed,
-                      unsigned drop_threshold, float drop_scale, int is_bf16,
-                      void* stream) {
-  if (B < 1 || H < 1 || T_len < 1 || m < 1 || dh < 16 || dh > MAX_DH ||
-      dh % 16 != 0 || valid_len < 0 || valid_len > T_len)
+                      void* dv, void* de, void* dkp, void* dvp, void* dep,
+                      int B, int H, int T_len, int dh, int m, int valid_len,
+                      float scale, unsigned seed, unsigned drop_threshold,
+                      float drop_scale, int is_bf16, void* stream) {
+  if (is_bf16 || B < 1 || H < 1 || T_len < 1 || m < 1 || dh < 16 ||
+      dh > MAX_DH || dh % 16 != 0 || valid_len < 0 || valid_len > T_len)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dk32 = static_cast<float*>(dk);
-  float* dv32 = static_cast<float*>(dv);
-  float* de32 = static_cast<float*>(de);
-  if (is_bf16)
-    return (int)launch<__nv_bfloat16>(q, k, v, e, dout, dq, dk32, dv32, de32,
-                                      B, H, T_len, dh, m, valid_len, scale,
-                                      seed, drop_threshold, drop_scale, s);
-  return (int)launch<float>(q, k, v, e, dout, dq, dk32, dv32, de32, B, H,
-                            T_len, dh, m, valid_len, scale, seed,
-                            drop_threshold, drop_scale, s);
+  const size_t smem = smem_bytes(dh, m);
+  cudaError_t err = cudaFuncSetAttribute(
+      rel_attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (T_len + BQ - 1) / BQ;
+  const dim3 grid(n_tiles, H, B);
+  rel_attention_bwd_kernel<<<grid, NTHREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(e),
+      static_cast<const float*>(dout), static_cast<float*>(dq),
+      static_cast<float*>(dkp), static_cast<float*>(dvp),
+      static_cast<float*>(dep), H, T_len, dh, m, valid_len, scale, seed,
+      drop_threshold, drop_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)B * H * T_len * dh + (size_t)H * (2 * m - 1) * dh;
+  const int blocks = (int)((n + NTHREADS - 1) / NTHREADS);
+  reduce_kernel<<<blocks < 65535 ? blocks : 65535, NTHREADS, 0, s>>>(
+      static_cast<const float*>(dkp), static_cast<const float*>(dvp),
+      static_cast<const float*>(dep), static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<float*>(de), B, H, T_len, dh, m,
+      n_tiles);
+  return (int)cudaGetLastError();
 }
 
 const char* rel_attention_error_string(int err) {

@@ -1,9 +1,11 @@
-// Relative-position attention forward for Hopper (sm_90a), with the
-// probability dropout of training.
+// Relative-position attention forward for Hopper (sm_90a), float32, with
+// the probability dropout of training.
 //
-// Replaces the forward of the TPU kernel `fused_rel_attention`
-// (silent_speech_tpu/ops/pallas/rel_attention.py, `_fwd` -> pl.pallas_call,
-// body `_fwd_kernel`). For query q and key k of one (batch b, head h):
+// Replaces, for float32 inputs, the forward of the TPU kernel
+// `fused_rel_attention` (silent_speech_tpu/ops/pallas/rel_attention.py,
+// `_fwd` -> pl.pallas_call at :386, body `_fwd_kernel` at :251); bfloat16
+// inputs, the training step's and serving's, run rel_attention_fwd_wmma.cu
+// on the tensor cores. For query q and key k of one (batch b, head h):
 //
 //   s[q,k] = (q.k) * scale + q . E_h[k - q + m - 1]
 //            when |k - q| <= m - 1 and (k < L) == (q < L), else -1e8
@@ -18,16 +20,16 @@
 //
 // Design: rel_attention.cuh (one CTA per 64-row query tile; the band's
 // scores stay in shared memory, so the softmax is exact). Dropout is
-// applied in place to the band's probabilities before P'.V.
+// applied in place to the band's probabilities before P'.V. Every product
+// is f32 FMA on the CUDA cores, so the f32 route keeps full f32 precision
+// (the f32 step check holds the kernels to 1e-4 of the plain versions).
 //
-// What bounds it on the card. At the serving shape (B=1, H=8, d_h=96,
-// m=100, T=1024, bf16) the function moves ~6.6 MB (bound ~2 us at
-// 3.35 TB/s) and needs ~0.9 GFLOP (~1 us on the bf16 tensor cores); at the
-// training shape (B=120, T=200) ~147 MB and ~17 GFLOP of band work, so
-// bytes bound it at ~44 us. This kernel is bound by neither: it runs the
-// band work on the f32 CUDA cores, one ~168 KB CTA per SM, so it is
-// latency-bound. Tensor-core products (wgmma), TMA staging and more CTAs
-// per SM are the next steps.
+// What bounds it on the card. At the training shape in f32 (B=120, H=8,
+// T=200, d_h=96, m=100) the function moves ~294 MB (~88 us at 3.35 TB/s)
+// and needs ~17 GFLOP of band work (~0.25 ms at the 67 TFLOP/s f32 peak
+// outside the tensor cores), so operations bound it. This kernel runs one
+// ~168 KB CTA per SM and is latency-bound. It serves the f32 step check
+// and f32 callers, off the bf16 training step and serving.
 
 #include "rel_attention.cuh"
 
@@ -41,11 +43,12 @@ __host__ __device__ inline int smem_floats(int dh, int m) {
   return BQ * g.ld + BQ * g.w + BQ * g.lds + BK * g.ld;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-rel_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ e,
-                         T* __restrict__ o, int H, int T_len, int dh, int m,
+rel_attention_fwd_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ e, float* __restrict__ o,
+                         int H, int T_len, int dh, int m,
                          int valid_len, float scale, unsigned seed,
                          unsigned drop_threshold, float drop_scale) {
   extern __shared__ float smem[];
@@ -61,8 +64,8 @@ rel_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t head = ((size_t)b * H + h) * (size_t)T_len * dh;
-  const T* vh = v + head;
-  T* oh = o + head;
+  const float* vh = v + head;
+  float* oh = o + head;
 
   const int k_lo = max(0, q0 - (m - 1));
   const int k_hi = min(T_len, q0 + BQ + m - 1);
@@ -121,27 +124,8 @@ rel_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < MAX_DH / 16; ++c)
       if (c < ncol)
-        oh[(size_t)qi * dh + tx + 16 * c] = from_f32<T>(oacc[a][c]);
+        oh[(size_t)qi * dh + tx + 16 * c] = oacc[a][c];
   }
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* e,
-                   void* o, int B, int H, int T_len, int dh, int m,
-                   int valid_len, float scale, unsigned seed,
-                   unsigned drop_threshold, float drop_scale,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)smem_floats(dh, m);
-  cudaError_t err = cudaFuncSetAttribute(
-      rel_attention_fwd_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  rel_attention_fwd_kernel<T><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(e), static_cast<T*>(o),
-      H, T_len, dh, m, valid_len, scale, seed, drop_threshold, drop_scale);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -153,25 +137,32 @@ int rel_attention_fwd_smem_bytes(int dh, int m) {
   return (int)(sizeof(float) * (size_t)smem_floats(dh, m));
 }
 
-// q, k, v, o: (B, H, T, dh) contiguous; e: (H, 2m-1, dh) contiguous; all
-// bf16 when is_bf16, else f32. drop_threshold 0 = no dropout; drop_scale is
-// 1 / (1 - drop_threshold / 2^32). Launches on `stream` and returns the
-// cudaError_t of the launch (0 on success).
+// q, k, v, o: (B, H, T, dh) contiguous f32; e: (H, 2m-1, dh) contiguous
+// f32. drop_threshold 0 = no dropout; drop_scale is 1 / (1 -
+// drop_threshold / 2^32). is_bf16 must be 0: bf16 inputs go to
+// rel_attention_fwd_wmma. Launches on `stream` and returns the cudaError_t
+// of the launch (0 on success).
 int rel_attention_fwd(const void* q, const void* k, const void* v,
                       const void* e, void* o, int B, int H, int T_len, int dh,
                       int m, int valid_len, float scale, unsigned seed,
                       unsigned drop_threshold, float drop_scale, int is_bf16,
                       void* stream) {
-  if (B < 1 || H < 1 || T_len < 1 || m < 1 || dh < 16 || dh > MAX_DH ||
-      dh % 16 != 0 || valid_len < 0 || valid_len > T_len)
+  if (is_bf16 || B < 1 || H < 1 || T_len < 1 || m < 1 || dh < 16 ||
+      dh > MAX_DH || dh % 16 != 0 || valid_len < 0 || valid_len > T_len)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)launch<__nv_bfloat16>(q, k, v, e, o, B, H, T_len, dh, m,
-                                      valid_len, scale, seed, drop_threshold,
-                                      drop_scale, s);
-  return (int)launch<float>(q, k, v, e, o, B, H, T_len, dh, m, valid_len,
-                            scale, seed, drop_threshold, drop_scale, s);
+  const size_t smem = sizeof(float) * (size_t)smem_floats(dh, m);
+  cudaError_t err = cudaFuncSetAttribute(
+      rel_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T_len + BQ - 1) / BQ, H, B);
+  rel_attention_fwd_kernel<<<grid, NTHREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(e),
+      static_cast<float*>(o), H, T_len, dh, m, valid_len, scale, seed,
+      drop_threshold, drop_scale);
+  return (int)cudaGetLastError();
 }
 
 const char* rel_attention_error_string(int err) {

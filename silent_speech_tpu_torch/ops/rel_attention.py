@@ -16,14 +16,21 @@ threshold t (0 = no dropout): the counter hash that the JAX kernel runs
 off the TPU (``_hash_bits``), so the kernels, the plain version and the
 JAX kernel in interpret mode draw the same mask.
 
-``rel_attention`` launches ``csrc/rel_attention_fwd.cu`` for CUDA tensors,
-inside an autograd function whose backward launches the four staged WMMA
-kernels of ``csrc/rel_attention_bwd_wmma.cu`` for bf16 and the single
-kernel of ``csrc/rel_attention_bwd.cu`` for float32; nothing quadratic is
-saved between forward and backward. CPU tensors take
+``rel_attention`` launches, for CUDA tensors, one forward kernel (K1f)
+inside an autograd function whose backward (K1b) recomputes P, so nothing
+quadratic is saved between the two. bfloat16 runs on the tensor cores:
+the forward is ``csrc/rel_attention_fwd_wmma.cu`` (one WMMA kernel that
+rounds P' to bf16 before ·V, where the JAX kernel rounds it), the backward
+the four staged WMMA kernels of ``csrc/rel_attention_bwd_wmma.cu``.
+float32 keeps full f32 arithmetic on the CUDA cores:
+``csrc/rel_attention_fwd.cu`` and ``csrc/rel_attention_bwd.cu``, whose dK,
+dV and dE partials are summed in a fixed order by a second kernel. Both
+backward routes are bit-equal from call to call. CPU tensors take
 ``rel_attention_plain``, differentiated by autograd; nothing else selects
-the plain version. ``rel_attention_bwd_staged_plain`` mirrors the staged
-backward's arithmetic for the tests. What bounds each kernel on the card
+the plain version, and a CUDA launch that fails raises.
+``rel_attention_plain(store_dtype=torch.bfloat16)`` mirrors the bf16
+forward's rounding and ``rel_attention_bwd_staged_plain`` the staged
+backward's arithmetic, for the tests. What bounds each kernel on the card
 is in its source's header.
 """
 
@@ -86,10 +93,16 @@ def _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold):
 def rel_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         rel_emb: torch.Tensor, max_dist: int,
                         valid_len: Optional[int] = None, seed: int = 0,
-                        drop_threshold: int = 0) -> torch.Tensor:
+                        drop_threshold: int = 0,
+                        store_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
     """The same function in plain PyTorch, computed in float32 and returned
-    in the input dtype. Materializes the (B, H, T, T) scores."""
+    in the input dtype. Materializes the (B, H, T, T) scores. With
+    ``store_dtype``, P' is rounded to it before ·V, as the bf16 kernel
+    (``csrc/rel_attention_fwd_wmma.cu``) and the JAX kernel round it."""
     _, p = _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold)
+    if store_dtype is not None:
+        p = p.to(store_dtype).float()
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
@@ -183,22 +196,28 @@ def _raise_launch_error(name, lib, err, smem_bytes) -> None:
 
 def _launch_fwd(q, k, v, rel_emb, max_dist, valid_len, seed,
                 drop_threshold) -> torch.Tensor:
+    """One forward launch: bf16 on the WMMA kernel, f32 on the f32 one."""
     _check_kernel_input({"q": q, "k": k, "v": v, "rel_emb": rel_emb},
                         q.dtype)
     b, h, t, dh = q.shape
-    lib = _library("rel_attention_fwd")
+    bf16 = q.dtype == torch.bfloat16
+    name = "rel_attention_fwd_wmma" if bf16 else "rel_attention_fwd"
+    lib = _library(name)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rel_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_emb.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_emb.data_ptr(),
             out.data_ptr(), b, h, t, dh, max_dist, valid_len,
             1.0 / math.sqrt(dh), seed, drop_threshold,
-            _keep_scale(drop_threshold), int(q.dtype == torch.bfloat16),
-            stream)
+            _keep_scale(drop_threshold))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if bf16:
+            err = lib.rel_attention_fwd_wmma(*args, stream)
+        else:
+            err = lib.rel_attention_fwd(*args, 0, stream)
     if err != 0:
-        _raise_launch_error("rel_attention_fwd", lib, err,
-                            lib.rel_attention_fwd_smem_bytes(dh, max_dist))
+        smem = (lib.rel_attention_fwd_wmma_smem_bytes(t, dh, max_dist) if bf16
+                else lib.rel_attention_fwd_smem_bytes(dh, max_dist))
+        _raise_launch_error(name, lib, err, smem)
     rel_attention.launches += 1
     return out
 
@@ -212,10 +231,10 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     bfloat16 runs the four staged WMMA kernels of
     ``csrc/rel_attention_bwd_wmma.cu`` (``_staged_bwd``): bf16 scratch, no
-    atomics, bit-equal from call to call. float32 runs the single kernel of
-    ``csrc/rel_attention_bwd.cu``, where dK, dV and dE (summed over the
-    batch) accumulate in float32 with atomics. A launch that fails
-    raises."""
+    atomics. float32 runs ``csrc/rel_attention_bwd.cu``: one kernel writes
+    per-query-tile f32 partials of dK, dV and dE (summed over the batch),
+    and a second sums them in a fixed order. Both routes are bit-equal
+    from call to call. A launch that fails raises."""
     valid_len = _check(q, k, v, rel_emb, max_dist, valid_len, seed,
                        drop_threshold)
     if q.device.type != "cuda":
@@ -235,24 +254,25 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return grads
     b, h, t, dh = q.shape
     lib = _library("rel_attention_bwd")
-    dq = torch.empty_like(q)
-    dk32, dv32 = (torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-                  for _ in range(2))
-    de32 = torch.zeros(rel_emb.shape, dtype=torch.float32, device=q.device)
+    dq, dk, dv, de = (torch.empty_like(x) for x in (q, k, v, rel_emb))
+    dims = (b, h, t, dh, max_dist)
+    dkp, dvp = (torch.empty(lib.rel_attention_bwd_partial_elems(0, *dims),
+                            dtype=torch.float32, device=q.device)
+                for _ in range(2))
+    dep = torch.empty(lib.rel_attention_bwd_partial_elems(1, *dims),
+                      dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.rel_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_emb.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk32.data_ptr(),
-            dv32.data_ptr(), de32.data_ptr(), b, h, t, dh, max_dist,
-            valid_len, 1.0 / math.sqrt(dh), seed, drop_threshold,
-            _keep_scale(drop_threshold), int(q.dtype == torch.bfloat16),
-            stream)
+            *(x.data_ptr() for x in (q, k, v, rel_emb, dout, dq, dk, dv, de,
+                                     dkp, dvp, dep)),
+            *dims, valid_len, 1.0 / math.sqrt(dh), seed, drop_threshold,
+            _keep_scale(drop_threshold), 0, stream)
     if err != 0:
         _raise_launch_error("rel_attention_bwd", lib, err,
                             lib.rel_attention_bwd_smem_bytes(dh, max_dist))
     rel_attention_bwd.launches += 1
-    return dq, dk32.to(q.dtype), dv32.to(q.dtype), de32.to(rel_emb.dtype)
+    return dq, dk, dv, de
 
 
 rel_attention_bwd.launches = 0  # backward calls since the last reset
@@ -363,20 +383,21 @@ def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     f32 = ctypes.c_float
+    dims = [i32] * 5                                      # B, H, T, dh, m
+    drop = [i32, f32, u32, u32, f32]    # valid_len, scale, seed, t, 1/keep
     if name == "rel_attention_fwd":
-        argtypes = {"rel_attention_fwd": [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32,
-            u32, u32, f32, i32, ptr]}
+        argtypes = {name: [ptr] * 5 + dims + drop + [i32, ptr]}
         smem_args = [i32, i32]
+    elif name == "rel_attention_fwd_wmma":
+        argtypes = {name: [ptr] * 5 + dims + drop + [ptr]}
+        smem_args = [i32, i32, i32]
     elif name == "rel_attention_bwd":
-        argtypes = {"rel_attention_bwd": [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-            i32, i32, i32, f32, u32, u32, f32, i32, ptr]}
+        argtypes = {name: [ptr] * 12 + dims + drop + [i32, ptr]}
         smem_args = [i32, i32]
+        lib.rel_attention_bwd_partial_elems.argtypes = [i32] + dims
+        lib.rel_attention_bwd_partial_elems.restype = ctypes.c_longlong
     else:
-        dims = [i32] * 5                                  # B, H, T, dh, m
-        argtypes = {f"{name}_scores": [ptr] * 8 + dims + [i32, f32, u32, u32,
-                                                          f32, ptr],
+        argtypes = {f"{name}_scores": [ptr] * 8 + dims + drop + [ptr],
                     f"{name}_dkdv": [ptr] * 6 + dims + [f32, ptr],
                     f"{name}_dq": [ptr] * 5 + dims + [f32, ptr],
                     f"{name}_de": [ptr] * 4 + dims + [i32, ptr]}

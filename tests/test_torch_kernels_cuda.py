@@ -12,6 +12,7 @@ import torch
 
 from silent_speech_tpu_torch.config import ModelConfig
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
+from silent_speech_tpu_torch.ops import rel_attention as attention_module
 from silent_speech_tpu_torch.ops.dtw import (dtw_align_batch,
                                              dtw_align_batch_plain)
 from silent_speech_tpu_torch.ops.rel_attention import (
@@ -70,8 +71,87 @@ def test_rel_attention_kernel_with_dropout_matches_plain(card, dtype, atol,
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("b,t,valid_len,m,drop", [
+    (1, 37, 20, 100, 0),        # T not a multiple of 16, T < 2m − 1
+    (1, 64, 64, 100, 0),
+    (2, 200, 150, 100, 0),      # an utterance and its padding
+    (2, 300, 250, 20, DROP),    # T above the band's columns (nb = 96)
+    (1, 1024, 700, 100, 0),     # serving's buckets
+    (1, 2048, 1500, 100, 0),
+    (120, 200, 200, 100, DROP),  # the training shape
+])
+def test_rel_attention_bf16_forward_matches_both_plain_versions(
+        card, b, t, valid_len, m, drop):
+    q, k, v, e = _inputs(t, torch.bfloat16, seed=t, b=b, m=m)
+    out = rel_attention(q, k, v, e, m, valid_len, 21, drop)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    # the kernel's own rounding point: P' to bf16 before ·V; the outputs
+    # differ by f32 summation order and one bf16 rounding of O
+    mirror = rel_attention_plain(q, k, v, e, m, valid_len, 21, drop,
+                                 store_dtype=torch.bfloat16)
+    torch.testing.assert_close(out.float(), mirror.float(), rtol=0,
+                               atol=2e-2)
+    # the f32 plain version: P' unrounded, a rounding step of P' more
+    ref = rel_attention_plain(q, k, v, e, m, valid_len, 21, drop)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+
+
+def test_rel_attention_forward_bf16_is_bit_equal_between_calls(card):
+    q, k, v, e = _inputs(200, torch.bfloat16, seed=12, b=4)
+    first = rel_attention(q, k, v, e, 100, None, 5, DROP)
+    second = rel_attention(q, k, v, e, 100, None, 5, DROP)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype,source", [
+    (torch.float32, "rel_attention_fwd"),
+    (torch.bfloat16, "rel_attention_fwd_wmma"),
+])
+def test_rel_attention_forward_route_counts_one_launch_per_call(
+        card, monkeypatch, dtype, source):
+    opened = []
+
+    def spy(name):
+        opened.append(name)
+        return real(name)
+
+    real = attention_module._library
+    monkeypatch.setattr(attention_module, "_library", spy)
+    q, k, v, e = _inputs(64, dtype)
+    before = rel_attention.launches
+    for _ in range(2):
+        rel_attention(q, k, v, e, 100)
+    assert rel_attention.launches == before + 2
+    assert opened == [source, source]
+
+
+@pytest.mark.parametrize("name,args", [
+    ("rel_attention_fwd", 5),    # q, k, v, e, o
+    ("rel_attention_bwd", 12),   # + dout, dq, dk, dv, de and 3 partials
+])
+def test_f32_kernel_entries_reject_bf16(card, name, args):
+    lib = attention_module._library(name)
+    stream = torch.cuda.current_stream().cuda_stream
+    x = torch.zeros(1, device="cuda")
+    err = getattr(lib, name)(*[x.data_ptr()] * args, 1, 1, 16, 16, 1, 16,
+                             0.25, 0, 0, 1.0, 1, stream)
+    assert err == 1   # cudaErrorInvalidValue, before any launch
+
+
+@pytest.mark.parametrize("b", [4, 120])
+def test_rel_attention_backward_f32_is_bit_equal_between_calls(card, b):
+    q, k, v, e = _inputs(200, torch.float32, seed=13, b=b)
+    g = torch.Generator().manual_seed(14)
+    dout = torch.randn(q.shape, generator=g).to("cuda")
+    first = rel_attention_bwd(q, k, v, e, dout, 100, None, 5, DROP)
+    second = rel_attention_bwd(q, k, v, e, dout, 100, None, 5, DROP)
+    for name, x, y in zip(("dq", "dk", "dv", "de"), first, second):
+        assert torch.equal(x, y), name
+
+
 @pytest.mark.parametrize("dtype,rel", [
-    (torch.float32, 1e-4),    # f32 both; dE sums 4·200 rows with atomics
+    (torch.float32, 1e-4),    # f32 both; dE sums 4·200 rows in another order
     (torch.bfloat16, 1e-2),   # f32 inside, one bf16 rounding of each grad
 ])
 @pytest.mark.parametrize("drop", [0, DROP], ids=["nodrop", "drop"])
