@@ -16,7 +16,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    f32, dropout off and on; bf16 runs four staged WMMA kernels, f32 one
    kernel and a fixed-order sum of its partials; two calls at the training
    shape must be bit-equal in each dtype) and the DTW alignment with its
-   DP-only mode (prof_dtw's shape and the n ∈ {1, 2} edge cases);
+   DP-only mode (prof_dtw's shape with the n ∈ {1, 2} edge cases, T2 =
+   1001 and integer costs with many exact ties; bf16 and f32);
 3. serve: init a full-width transduction model and a full-width
    recognition model from a seed, save each as a reference-layout
    ``model.pt``, export both with the export CLI, load the bundles on the
@@ -38,7 +39,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    steps (median of 3 synced trials) and each kernel per launch at the
    main path's shapes against its bound and its plain version (the bf16
    attention forward also by its device time per launch under the
-   profiler, the bf16 attention backward also stage by stage, both
+   profiler, the bf16 attention backward also stage by stage, the DTW's
+   DP-only mode also in ns a diagonal and with its backtrace's share, both
+   DTW modes also by device time per launch, both
    attention kernels also in f32, and PyTorch's
    scaled_dot_product_attention with the relative bias precomputed as a
    yardstick for the bf16 forward, not the same function and never
@@ -86,6 +89,12 @@ DROP_CASES = ((4, 200), TRAIN_BT, (1, 1024))    # (B, T), L = T, rate 0.2
 BWD_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
 HEADLINE_T = 1024
 FWD_KERNEL = "::fwd_kernel("    # csrc/rel_attention_fwd_wmma.cu in a trace
+DTW_KERNEL = "dtw_kernel<"       # csrc/dtw.cu in a trace
+# a launch's device time from the profiler against the same call's queued
+# CUDA events: no more than the events (5% for the spread of two runs), and
+# no less than the events less the gap between two launches
+PROFILE_AGREEMENT = (0.75, 1.05)
+QUEUE_SLEEP_CYCLES = 100_000_000   # ~50 ms: longer than queueing 20 calls
 # a full bf16 forward with the kernel vs the plain attention: per-layer
 # differences of one bf16 step compound over 6 layers
 SERVED_RTOL = 0.05
@@ -186,27 +195,68 @@ def dtw_bound(n1, n2, t1, item):
     return _bound(nbytes, 4 * cells, "float32")
 
 
-def device_ms_per_launch(fn, kernel: str, launches: int = 20) -> float:
+def queued_ms(fn, iters: int = 20) -> float:
+    """ms a call of ``fn`` by CUDA events, the calls queued behind a
+    sleeping kernel so that the host's time per call does not show: the
+    device's time for the call's launches and the gaps between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms_per_launch(fn, kernel: str, launches: int = 20):
     """Median device time of one launch of the kernel whose profiler name
     contains ``kernel``, over ``launches`` calls of ``fn`` under the
     profiler: the kernel alone, where back-to-back launches from Python
-    measure the host."""
+    measure the host. ``fn`` launches that one kernel. A window's trace
+    counts when it holds at least half the launches and their median lies
+    within ``PROFILE_AGREEMENT`` of ``queued_ms`` of the same call: on the
+    H100 machine a trace has come back empty, and once with launches of
+    half their event-timed length. Up to 3 windows; None (not measured)
+    when none counts. Raises when no window saw the kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    # the trace may miss a launch at its start; the median takes the rest
-    times = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA and kernel in ev.name]
-    if not times:
-        raise AssertionError(f"the profiler saw no launch of {kernel}")
-    return float(np.median(times))
+    ref = queued_ms(fn)
+    lo, hi = PROFILE_AGREEMENT
+    seen = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        times = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA and kernel in ev.name]
+        seen += len(times)
+        if not times:
+            continue
+        median = float(np.median(times))
+        if len(times) >= launches // 2 and lo * ref <= median <= hi * ref:
+            return median
+        log(f"[profile] a trace of {kernel} refused: {len(times)} of "
+            f"{launches} launches, median {median:.4f} ms against "
+            f"{ref:.4f} ms a call by queued events")
+    if not seen:
+        raise AssertionError(f"the profiler saw no launch of {kernel} in 3 "
+                             f"windows")
+    log(f"[profile] device time of {kernel} not measured: no trace agreed "
+        f"with the queued events")
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def sdpa_yardstick_ms(q, k, v, e) -> float:
@@ -400,7 +450,9 @@ def check_kernels():
                 del again
             del q, k, v, e, dout, grads, xs
 
-    # DTW at prof_dtw.py's shape; utterances 0-3 are the n ∈ {1, 2} edges
+    # DTW at prof_dtw.py's shape (utterances 0-3 are the n ∈ {1, 2} edges),
+    # at T2 = 1001 (rows not 16-byte aligned: scalar cost loads) and on
+    # integer costs (many exact ties between up, left and diag)
     rng = np.random.default_rng(SEED)
     costs = torch.from_numpy(rng.uniform(0.1, 2.0, size=(16, 1024, 1024))
                              .astype(np.float32)).cuda()
@@ -408,27 +460,45 @@ def check_kernels():
     n2 = rng.integers(600, 1000, size=16)
     n1[:4], n2[:4] = (1, 1, 2, 2), (1, 2, 1, 2)
     n1, n2 = (torch.from_numpy(x).int().cuda() for x in (n1, n2))
-    for dtype in (torch.float32, torch.bfloat16):
-        c = costs.to(dtype)
-        align, cost = dtw_align_batch(c, n1, n2)
-        dp_align, dp_cost = dtw_align_batch(c, n1, n2, dp_only=True)
-        torch.cuda.synchronize()
-        ref_align, ref_cost = dtw_align_batch_plain(c, n1, n2)
-        mismatched = int((align != ref_align).any(1).sum())
-        finite = torch.isfinite(ref_cost)
-        same_inf = bool((torch.isfinite(cost) == finite).all())
-        rel = ((cost - ref_cost).abs()[finite]
-               / ref_cost.abs()[finite].clamp_min(1e-30)).max().item()
-        dp_same = bool((dp_cost == cost).all()) and int(dp_align.abs().sum()) \
-            == 0
-        ok = mismatched == 0 and same_inf and rel <= 1e-5 and dp_same
-        log(f"[kernel] dtw_align {str(dtype)[6:]} K=16 T=1024 n in [600, "
-            f"1000) + n in {{1, 2}}: alignment rows differing {mismatched}, "
-            f"path cost max rel err {rel:.3g} (tolerance 1e-5), dp_only "
-            f"cost equal and alignment zero: {dp_same} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("dtw_align disagrees with its plain version")
+    ties = torch.from_numpy(rng.integers(0, 3, size=(16, 1024, 1024))
+                            .astype(np.float32)).cuda()
+    dtw_cases = [("K=16 T=1024 n in [600, 1000) + n in {1, 2}", costs, n1,
+                  n2),
+                 ("K=16 T1=1000 T2=1001", costs[:, :1000, :1001]
+                  .contiguous(), n1.clamp(max=1000), n2.clamp(max=1001)),
+                 ("K=16 T=1024 integer costs in {0, 1, 2}", ties, n1, n2)]
+    for label, case_costs, c_n1, c_n2 in dtw_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            c = case_costs.to(dtype)
+            align, cost = dtw_align_batch(c, c_n1, c_n2)
+            dp_align, dp_cost = dtw_align_batch(c, c_n1, c_n2, dp_only=True)
+            torch.cuda.synchronize()
+            ref_align, ref_cost = dtw_align_batch_plain(c, c_n1, c_n2)
+            mismatched = int((align != ref_align).any(1).sum())
+            finite = torch.isfinite(ref_cost)
+            same_inf = bool((torch.isfinite(cost) == finite).all())
+            rel = ((cost - ref_cost).abs()[finite]
+                   / ref_cost.abs()[finite].clamp_min(1e-30)).max().item()
+            dp_same = bool((dp_cost == cost).all()) and int(
+                dp_align.abs().sum()) == 0
+            ok = mismatched == 0 and same_inf and rel <= 1e-5 and dp_same
+            log(f"[kernel] dtw_align {str(dtype)[6:]} {label}: alignment "
+                f"rows differing {mismatched}, path cost max rel err "
+                f"{rel:.3g} (tolerance 1e-5), dp_only cost equal and "
+                f"alignment zero: {dp_same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"dtw_align disagrees with its plain "
+                                     f"version: {label}")
+    # prof_dtw's shape in bf16: the time scales with max(n1 + n2 - 1)
+    c = costs.to(torch.bfloat16)
+    diagonals = int((n1 + n2 - 1).max())
+    ms = cuda_time_ms(lambda: dtw_align_batch(c, n1, n2), iters=10)
+    dp_ms = cuda_time_ms(lambda: dtw_align_batch(c, n1, n2, dp_only=True),
+                         iters=10)
+    log(f"[time] dtw_align bf16 K=16 T=1024 n in [600, 1000) (prof_dtw's "
+        f"shape, {diagonals} diagonals): kernel {ms:.4f} ms/launch, dp_only "
+        f"{dp_ms:.4f} ms ({dp_ms * 1e6 / diagonals:.1f} ns a diagonal)")
+    del c, costs, ties, dtw_cases
     return errs
 
 
@@ -797,10 +867,10 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
                                              "bfloat16")
         log(f"[time] {card} | rel_attention_fwd bf16 B=1 H=8 T={t} d_h=96 "
             f"m=100 (serving): kernel {ms:.4f} ms/launch back to back "
-            f"(the wrapper's host time included), {dev_ms:.4f} ms device time "
-            f"per launch (profiler), plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / dev_ms:.2%} of "
-            f"bound")
+            f"(the wrapper's host time included), {fmt_ms(dev_ms)} device "
+            f"time per launch (profiler), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / (dev_ms or ms):.2%} "
+            f"of bound ({'device time' if dev_ms else 'back to back'})")
         if t == HEADLINE_T:
             serve_ms, serve_dev_ms = ms, dev_ms
 
@@ -811,7 +881,7 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
     fwd_dev_ms = device_ms_per_launch(
         lambda: rel_attention(q, k, v, e, 100, None, 3, drop), FWD_KERNEL)
     log(f"[time] {card} | rel_attention_fwd bf16 B={b} H=8 T={t} (training): "
-        f"{fwd_dev_ms:.4f} ms device time per launch (profiler)")
+        f"{fmt_ms(fwd_dev_ms)} device time per launch (profiler)")
     fwd_plain = cuda_time_ms(
         lambda: rel_attention_plain(q, k, v, e, 100, None, 3, drop),
         iters=5)
@@ -883,17 +953,27 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
     dtw_ms = cuda_time_ms(lambda: dtw_align_batch(costs, n1, n2), iters=10)
     dp_ms = cuda_time_ms(lambda: dtw_align_batch(costs, n1, n2,
                                                  dp_only=True), iters=10)
+    dtw_dev_ms = device_ms_per_launch(
+        lambda: dtw_align_batch(costs, n1, n2), DTW_KERNEL)
+    dp_dev_ms = device_ms_per_launch(
+        lambda: dtw_align_batch(costs, n1, n2, dp_only=True), DTW_KERNEL)
     dtw_plain = cuda_time_ms(lambda: dtw_align_batch_plain(costs, n1, n2),
                              iters=1, warmup=1)
     dp_plain = cuda_time_ms(lambda: dtw_align_batch_plain(
         costs, n1, n2, dp_only=True), iters=1, warmup=1)
     dtw_b = dtw_bound(n1.cpu().numpy(), n2.cpu().numpy(), t1, 2)
+    diagonals = int((n1 + n2 - 1).max())
+    dp_ns_diag = dp_ms * 1e6 / diagonals
     log(f"[time] {card} | dtw_align bf16 costs K={kk} T={t1} (the training "
         f"batch's silent slice, n1 {n1.tolist()}, n2 {n2.tolist()}): "
         f"kernel {dtw_ms:.4f} ms/launch, dp_only {dp_ms:.4f} ms "
         f"(backtrace share {1 - dp_ms / dtw_ms:.1%}), plain {dtw_plain:.2f} "
         f"ms, plain dp_only {dp_plain:.2f} ms, bound {dtw_b[0]:.5f} ms "
         f"({dtw_b[1]}), {dtw_b[0] / dtw_ms:.2%} of bound")
+    log(f"[time] {card} | dtw_align, {diagonals} diagonals (max n1 + n2 - "
+        f"1): dp_only {dp_ns_diag:.1f} ns a diagonal, backtrace "
+        f"{dtw_ms - dp_ms:.4f} ms; device time per launch (profiler) "
+        f"{fmt_ms(dtw_dev_ms)}, dp_only {fmt_ms(dp_dev_ms)}")
 
     shape = f"B={b} H=8 T={t} d_h=96 m=100 bf16 dropout 0.2"
 
@@ -932,16 +1012,21 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
          "source": "silent_speech_tpu_torch/csrc/dtw.cu",
          "replaces": "silent_speech_tpu/ops/pallas/dtw_kernel.py:209",
          "shape": f"K={kk} T={t1} bf16 costs", **launches("dtw_align"),
-         "max_abs_err": dtw_err,
-         "ms": dtw_ms, "plain_ms": dtw_plain, "bound_ms": dtw_b[0],
+         "max_abs_err": dtw_err, "ms": dtw_ms, "device_ms": dtw_dev_ms,
+         "ns_per_diagonal": dtw_ms * 1e6 / diagonals,
+         "backtrace_ms": dtw_ms - dp_ms,
+         "plain_ms": dtw_plain, "bound_ms": dtw_b[0],
          "bound_by": dtw_b[1], "library_ms": None},
         {"name": "dtw_align_dp_only", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/dtw.cu",
          "replaces": "tools/prof_dtw.py:136",
          "shape": f"K={kk} T={t1} bf16 costs",
          **launches("dtw_align_dp_only"), "on_main_path": False,
-         "max_abs_err": dp_err,
-         "ms": dp_ms, "plain_ms": dp_plain, "bound_ms": dtw_b[0],
+         "max_abs_err": dp_err, "ms": dp_ms, "device_ms": dp_dev_ms,
+         "ns_per_diagonal": dp_ns_diag,
+         "ns_per_diagonal_device": (None if dp_dev_ms is None
+                                    else dp_dev_ms * 1e6 / diagonals),
+         "plain_ms": dp_plain, "bound_ms": dtw_b[0],
          "bound_by": dtw_b[1], "library_ms": None},
     ]
 

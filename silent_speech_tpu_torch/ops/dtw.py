@@ -14,13 +14,15 @@ in float32 (the costs may be stored in bfloat16), then a backtrace from
 for each row i < n1, the smallest column visited (0 for row 0 and beyond
 n1) and the corner cost ``dtw[n1−1, n2−1]``.
 
-``dtw_align_batch`` launches ``csrc/dtw.cu`` for CUDA tensors and runs
-``dtw_align_batch_plain`` (the JAX scan's per-cell recurrence, vectorized
-over utterances and anti-diagonals) for CPU tensors; both sum in the same
-order, so they agree bit for bit. ``dp_only=True`` skips the backtrace
-(alignment of zeros): the DP-only timing mode of the JAX package's
-``tools/prof_dtw.py``. ``align_from_distances_numpy`` is the float64
-reference-semantics oracle of the tests.
+``dtw_align_batch`` launches ``csrc/dtw.cu`` for CUDA tensors (up to
+``MAX_ROWS`` rows) and runs ``dtw_align_batch_plain`` (the JAX scan's
+per-cell recurrence, vectorized over utterances and anti-diagonals) for
+CPU tensors; both sum in the same order, so they agree bit for bit.
+``dtw_choices_plain`` is the plain version's DP alone, with its choices.
+``dp_only=True`` skips the backtrace (alignment of zeros): the DP-only
+timing mode of the JAX package's ``tools/prof_dtw.py``.
+``align_from_distances_numpy`` is the float64 reference-semantics oracle
+of the tests.
 """
 
 from __future__ import annotations
@@ -34,12 +36,15 @@ import torch
 
 from . import build
 
+# rows (T1) the kernel takes: 1024 threads, up to 4 rows each in registers
+MAX_ROWS = 4096
 
-def dtw_align_batch_plain(costs: torch.Tensor, n1: torch.Tensor,
-                          n2: torch.Tensor, dp_only: bool = False
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(K, T1, T2) costs and (K,) lengths → ((K, T1) int32 alignment, (K,)
-    float32 path cost), in plain PyTorch on the costs' device."""
+
+def dtw_choices_plain(costs: torch.Tensor, n1: torch.Tensor,
+                      n2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The DP of ``dtw_align_batch_plain``: (K, T1, T2) costs and (K,)
+    lengths → ((K, T1 + T2 − 1, T1) uint8 choices, 0 up, 1 left, 2 diag,
+    of cell (i, d − i) at [:, d, i]; (K,) float32 corner cost)."""
     k, t1, t2 = costs.shape
     dev = costs.device
     c = costs.float()
@@ -69,6 +74,20 @@ def dtw_align_batch_plain(costs: torch.Tensor, n1: torch.Tensor,
         corner = corner + torch.where(
             (n1 + n2 - 2 == d), cur[rows, n1 - 1], 0.0)
         prev2, prev = prev, cur
+    return choices, corner
+
+
+def dtw_align_batch_plain(costs: torch.Tensor, n1: torch.Tensor,
+                          n2: torch.Tensor, dp_only: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, T1, T2) costs and (K,) lengths → ((K, T1) int32 alignment, (K,)
+    float32 path cost), in plain PyTorch on the costs' device."""
+    k, t1, t2 = costs.shape
+    dev = costs.device
+    choices, corner = dtw_choices_plain(costs, n1, n2)
+    n1 = n1.long().clamp(1, t1)
+    n2 = n2.long().clamp(1, t2)
+    rows = torch.arange(k, device=dev)
     align = torch.zeros((k, t1), dtype=torch.int64, device=dev)
     if not dp_only:
         bi, bj = n1 - 1, n2 - 1
@@ -86,7 +105,12 @@ def dtw_align_batch(costs: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched DTW: (K, T1, T2) costs (float32 or bfloat16; the DP runs in
     float32) and (K,) int lengths on one device → ((K, T1) int32
-    alignment, (K,) float32 path cost). Lengths are clamped to [1, T]."""
+    alignment, (K,) float32 path cost). Lengths are clamped to [1, T].
+
+    On a CUDA tensor the kernel takes at most ``MAX_ROWS`` = 4096 rows (T1;
+    each of its 1024 threads holds up to 4 rows in registers): more raise
+    ``ValueError``. T2 has no limit. CPU tensors take the plain version at
+    any size."""
     if costs.dim() != 3:
         raise ValueError(f"costs must be (K, T1, T2), got "
                          f"{tuple(costs.shape)}")
@@ -104,9 +128,10 @@ def dtw_align_batch(costs: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor,
                          f"{costs.dtype}")
     if not costs.is_contiguous():
         raise ValueError("costs must be contiguous")
+    if t1 > MAX_ROWS:
+        raise ValueError(f"T1={t1} rows exceed the kernel's limit of "
+                         f"{MAX_ROWS} (MAX_ROWS)")
     lib = _library()
-    if lib.dtw_smem_bytes(t1) > 232448:  # an H100 block's shared memory
-        raise ValueError(f"T1={t1} rows exceed the kernel's shared memory")
     n1 = n1.to(torch.int32).contiguous()
     n2 = n2.to(torch.int32).contiguous()
     align = torch.empty((k, t1), dtype=torch.int32, device=costs.device)

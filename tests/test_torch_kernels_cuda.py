@@ -13,7 +13,7 @@ import torch
 from silent_speech_tpu_torch.config import ModelConfig
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.ops import rel_attention as attention_module
-from silent_speech_tpu_torch.ops.dtw import (dtw_align_batch,
+from silent_speech_tpu_torch.ops.dtw import (MAX_ROWS, dtw_align_batch,
                                              dtw_align_batch_plain)
 from silent_speech_tpu_torch.ops.rel_attention import (
     _staged_bwd, attention_drop_threshold, rel_attention, rel_attention_bwd,
@@ -260,13 +260,7 @@ def _dtw_case(seed=0, k=16, t1=1024, t2=1024):
             torch.from_numpy(n2).int().cuda())
 
 
-@pytest.mark.parametrize("dtype,t1,t2", [
-    (torch.float32, 1024, 1024), (torch.bfloat16, 1024, 1024),
-    (torch.float32, 2048, 1536),   # beyond the trainer's t_cap of 1024
-])
-def test_dtw_kernel_matches_plain(card, dtype, t1, t2):
-    costs, n1, n2 = _dtw_case(k=16 if t1 == 1024 else 6, t1=t1, t2=t2)
-    costs = costs.to(dtype)
+def _dtw_matches_plain(costs, n1, n2):
     before = dtw_align_batch.launches
     align, cost = dtw_align_batch(costs, n1, n2)
     torch.cuda.synchronize()
@@ -278,6 +272,58 @@ def test_dtw_kernel_matches_plain(card, dtype, t1, t2):
     dp_align, dp_cost = dtw_align_batch(costs, n1, n2, dp_only=True)
     torch.testing.assert_close(dp_cost, cost, rtol=0, atol=0)
     assert int(dp_align.abs().sum()) == 0
+    return align, cost
+
+
+@pytest.mark.parametrize("dtype,t1,t2", [
+    (torch.float32, 1024, 1024), (torch.bfloat16, 1024, 1024),
+    (torch.float32, 2048, 1536),   # beyond the trainer's t_cap of 1024
+    # rows not 16-byte aligned: the costs come by scalar loads
+    (torch.float32, 1000, 1001), (torch.bfloat16, 1000, 1001),
+    (torch.bfloat16, 4096, 1024),  # 4 rows a thread, the kernel's limit
+])
+def test_dtw_kernel_matches_plain(card, dtype, t1, t2):
+    k = {1024: 16, 4096: 5}.get(t1, 6)
+    costs, n1, n2 = _dtw_case(k=k, t1=t1, t2=t2)
+    _dtw_matches_plain(costs.to(dtype), n1, n2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dtw_kernel_on_integer_ties_is_bit_equal(card, dtype):
+    # integer costs (exact in bf16) make many exact ties between up, left
+    # and diag: the first minimum must be the plain version's
+    _, n1, n2 = _dtw_case(seed=3)
+    rng = np.random.default_rng(4)
+    costs = torch.from_numpy(rng.integers(0, 3, size=(16, 1024, 1024))
+                             .astype(np.float32)).cuda().to(dtype)
+    _, cost = _dtw_matches_plain(costs, n1, n2)
+    ref = dtw_align_batch_plain(costs, n1, n2)[1]
+    torch.testing.assert_close(cost, ref, rtol=0, atol=0)
+
+
+def test_dtw_kernel_with_one_live_warp(card):
+    # every n1 <= 32: one warp joins the per-diagonal barrier
+    costs, _, _ = _dtw_case(seed=5)
+    rng = np.random.default_rng(6)
+    n1 = torch.from_numpy(rng.integers(1, 33, size=16)).int().cuda()
+    n2 = torch.from_numpy(rng.integers(1, 1025, size=16)).int().cuda()
+    n1[0], n2[0] = 32, 1024
+    _dtw_matches_plain(costs.to(torch.bfloat16), n1, n2)
+
+
+def test_dtw_kernel_is_bit_equal_between_calls(card):
+    costs, n1, n2 = _dtw_case(seed=7)
+    costs = costs.to(torch.bfloat16)
+    first = dtw_align_batch(costs, n1, n2)
+    again = dtw_align_batch(costs, n1, n2)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_dtw_kernel_rejects_rows_past_its_limit(card):
+    costs = torch.zeros((1, MAX_ROWS + 1, 16), device="cuda")
+    n = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="4096"):
+        dtw_align_batch(costs, n, n)
 
 
 def test_rel_attention_rejects_non_contiguous_cuda_input(card):
