@@ -28,20 +28,38 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    with the plain attention on the card, and (f32) against the CPU;
 4. train: a full-width transduction trainer (bf16 compute, dropout 0.2,
    shift augmentation, AdamW with bf16 moments) takes 2 warm-up and 10
-   timed steps on reference-capacity packed batches (120 chunks of 200
-   frames, 64 utterances, t_cap 1024), with the counts zeroed just before
+   timed steps on the bench's 4 example sets packed on the host to the
+   reference capacity (120 chunks of 200 frames, 64 utterances, t_cap
+   1024), with the counts zeroed just before
    and read just after: 6 forward and 6 backward attention launches and 1
    DTW launch (when the batch has silent utterances) a step. Every loss is
    finite and the weights and BatchNorm statistics move. One eval step.
    Then one f32 step with the kernels against the same step with the plain
    versions swapped in (same seeds, so the same dropout masks);
-5. time the requests per bucket, the forward per bucket, the training
+5. the training run: the bench's device corpus of 4 example sets on the
+   card (``silent_speech_tpu_torch/bench.py``), one batch gathered there
+   held bit-equal to the upload of the same batch packed on the host, the
+   bench's measurement (its JSON line printed) and ``train_step_ids``
+   beside ``train_step`` with host packing (steps/s and idle share, in
+   one call); ``fit()`` for 2 epochs with validation into a directory
+   under ``build/`` (the idle share of its whole window, and of each
+   epoch's steps and loss read alone), ``model.pt`` loaded
+   strictly, a resume for a 3rd epoch whose state before its first step
+   must equal the saved one; the counts zeroed before the first fit and
+   read after the resume: every step on the device-corpus path, 6 forward
+   and 6 backward attention launches and 1 DTW a step, 6 forward and 1
+   DTW a validation batch (each with silent utterances for the DTW). Then
+   ``get_aligned_prediction`` of a silent utterance: 6 forward attention
+   launches at B=1 and one DTW at K=1 whose alignment equals the plain
+   version's;
+6. time the requests per bucket, the forward per bucket, the training
    steps (median of 3 synced trials) and each kernel per launch at the
    main path's shapes against its bound and its plain version (the bf16
    attention forward also by its device time per launch under the
    profiler, the bf16 attention backward also stage by stage, the DTW's
    DP-only mode also in ns a diagonal and with its backtrace's share, both
-   DTW modes also by device time per launch, both
+   DTW modes also by device time per launch, the DTW also at
+   get_aligned_prediction's K=1 f32 shape, both
    attention kernels also in f32, and PyTorch's
    scaled_dot_product_attention with the relative bias precomputed as a
    yardstick for the bf16 forward, not the same function and never
@@ -57,6 +75,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import shutil
 import sys
@@ -114,6 +133,10 @@ COMPARED_GRADS = ("conv_blocks.0.conv1.weight",
                   ".embeddings",
                   "transformer.layers.3.linear1.weight", "w_out.weight",
                   "w_aux.weight")
+
+
+FIT_EPOCHS = 2                     # then resumed for one more
+DEV_FRAMES = 6000                  # the validation set: one eval batch
 
 
 def log(msg: str) -> None:
@@ -295,49 +318,19 @@ def utterance(t: int, seed: int):
             rng.normal(size=(8 * t, 8)).astype(np.float32))
 
 
-def build_examples(rng, target_frames=22000, silent_fraction=0.3,
-                   max_len=800):
-    """Synthetic utterances up to ``target_frames`` frames, about 30%
-    silent (own copy of the JAX package's ``bench.py`` generator)."""
-    examples = []
-    total = 0
-    while total < target_frames:
-        t = int(rng.uniform(max_len * 3 // 8, max_len))
-        silent = rng.uniform() < silent_fraction
-        ex = {
-            "emg": rng.normal(size=(t, 112)).astype(np.float32),
-            "raw_emg": rng.normal(size=(t * 8, 8)).astype(np.float32),
-            "session_ids": np.zeros(t, dtype=np.int64),
-            "silent": silent,
-            "text": "benchmark",
-            "text_int": rng.integers(0, 37, size=40).astype(np.int64),
-        }
-        if silent:
-            tt = int(t * rng.uniform(0.9, 1.15))
-            ex["parallel_voiced_audio_features"] = rng.normal(
-                size=(tt, 80)).astype(np.float32)
-            ex["parallel_voiced_emg"] = rng.normal(
-                size=(tt, 112)).astype(np.float32)
-            ex["phonemes"] = rng.integers(0, 48, size=tt).astype(np.int64)
-        else:
-            ex["audio_features"] = rng.normal(size=(t, 80)).astype(
-                np.float32)
-            ex["phonemes"] = rng.integers(0, 48, size=t).astype(np.int64)
-        examples.append(ex)
-        total += t
-    return examples
-
-
-def device_profile(card, what, fn):
+def device_profile(card, what, fn, top=12, cpu=True, events=None):
     """Run ``fn`` once under the profiler; log wall time, device busy time,
-    idle share and the top kernels by device time."""
+    idle share and the ``top`` kernels by device time, and return (wall ms,
+    busy ms), or None when the profiler saw no device activity. ``cpu=False``
+    traces the card alone, which costs the host less. ``events``, a list,
+    receives (name, start µs, end µs) of every device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + ([ProfilerActivity.CPU] if cpu else [])) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -347,16 +340,20 @@ def device_profile(card, what, fn):
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us() / 1e3)
+            if events is not None:
+                events.append((ev.name, ev.time_range.start,
+                               ev.time_range.end))
     busy = sum(by_name.values())
     if busy == 0:
         log(f"[profile] {what}: device time not measured: the profiler saw "
             f"no CUDA activity")
-        return
+        return None
     log(f"[profile] {card} | {what} under the profiler: wall "
         f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
         f"{1 - busy / wall_ms:.1%}")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile]   {ms:8.3f} ms {ms / busy:6.1%}  {name[:100]}")
+    return wall_ms, busy
 
 
 def check_kernels():
@@ -698,6 +695,7 @@ def train(card):
     step, and the f32 step against its plain twin. Returns the main path's
     launches, the steps/s trials, and the inputs the timings use."""
     import torch
+    from silent_speech_tpu_torch.bench import example_sets
     from silent_speech_tpu_torch.config import ModelConfig
     from silent_speech_tpu_torch.models import transformer
     from silent_speech_tpu_torch.ops.dtw import (
@@ -712,8 +710,7 @@ def train(card):
     model = trainer.init_state(SEED)
     cfg = trainer.train_cfg
     t0 = time.perf_counter()
-    batches = [trainer._pack(build_examples(np.random.default_rng(i)))
-               for i in range(4)]
+    batches = [trainer._pack(s) for s in example_sets()]
     log(f"[train] {sum(p.numel() for p in model.parameters())} parameters, "
         f"bf16 compute, dropout {trainer.model_cfg.dropout}, shift "
         f"{trainer.model_cfg.shift_augment}, moments "
@@ -845,8 +842,287 @@ def train(card):
     return launches, trials, (costs, n1, n2)
 
 
-def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
-    """Phase 5, kernels: ms per launch at the main path's shapes, against
+def _state_equal(a, b) -> bool:
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(a[k].cpu(),
+                                                    b[k].cpu()) for k in a)
+
+
+# torch.cuda._sleep's kernel: a mark of a host call on the card's timeline
+MARK_KERNEL = "spin_kernel"
+
+
+def _spy(obj, name, calls, marks=None):
+    """Wrap ``obj.name`` so that each call's arguments and result are
+    appended to ``calls``; with ``marks``, each call first launches a mark
+    kernel and appends ``name`` there."""
+    import torch
+
+    fn = getattr(obj, name)
+
+    def wrapped(*args):
+        if marks is not None:
+            torch.cuda._sleep(100)
+            marks.append(name)
+        out = fn(*args)
+        calls.append((args, out))
+        return out
+
+    setattr(obj, name, wrapped)
+
+
+def step_windows(events, marks):
+    """(wall ms, busy ms) of each epoch's step window in a profiled fit():
+    from the card's start of the epoch's first step mark to that of the
+    validation's first, which holds the steps and the epoch's loss read.
+    The card is idle at both marks (after the corpus build or a checkpoint,
+    and after the loss read), so each runs when the host reaches it. None
+    when the marks on the card are not the calls made."""
+    starts = sorted(s for n, s, _ in events if MARK_KERNEL in n)
+    if len(starts) != len(marks):
+        return None
+    windows, begin = [], None
+    for name, t in zip(marks, starts):
+        if name != "eval_step":
+            begin = t if begin is None else begin
+        elif begin is not None:
+            windows.append((begin, t))
+            begin = None
+    return [((b - a) / 1e3,
+             sum(min(e, b) - s for _, s, e in events if a <= s < b) / 1e3)
+            for a, b in windows]
+
+
+def train_run(card, work):
+    """Phase 5: the training run on a device-resident corpus, full width.
+    Returns the launches of the fit() and resume window and of
+    get_aligned_prediction, and the DTW inputs of the latter."""
+    import torch
+    from silent_speech_tpu_torch import bench
+    from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
+                                                TransductionTrainConfig)
+    from silent_speech_tpu_torch.data.dataset import ExampleList
+    from silent_speech_tpu_torch.data.device_cache import assemble_batch
+    from silent_speech_tpu_torch.data.normalizers import FeatureNormalizer
+    from silent_speech_tpu_torch.data.packing import upload
+    from silent_speech_tpu_torch.models.encoder import EMGEncoder
+    from silent_speech_tpu_torch.ops.dtw import (
+        dtw_align_batch, dtw_align_batch_plain)
+    from silent_speech_tpu_torch.train import transduction
+    from silent_speech_tpu_torch.train.transduction import (
+        TransductionTrainer)
+
+    # fit()'s log lines on stdout
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("[fit.log] %(message)s"))
+    logging.getLogger().addHandler(handler)
+    logging.getLogger().setLevel(logging.INFO)
+
+    # the bench's corpus and trainer, and one gathered batch against the
+    # upload of the same batch packed on the host
+    t0 = time.perf_counter()
+    sets = bench.example_sets()
+    trainer, corpus, id_sets = bench.setup(device="cuda", sets=sets)
+    nbytes = sum(a.numel() * a.element_size() for a in corpus.arrays)
+    log(f"[fit] device corpus of {corpus.num_examples} utterances "
+        f"({sum(len(s) for s in sets)} in 4 sets), {nbytes / 2**20:.1f} "
+        f"MiB on the card, built in {time.perf_counter() - t0:.2f} s")
+    caps = trainer._cache_caps()
+    ids = corpus.order_silent_first(id_sets[0])
+    u_cap = trainer.data_cfg.utt_cap
+    utt_ids = torch.zeros(u_cap, dtype=torch.int64)
+    utt_ids[: len(ids)] = torch.tensor(ids)
+    gathered = assemble_batch(
+        corpus.arrays, utt_ids.cuda(),
+        torch.arange(u_cap, device="cuda") < len(ids),
+        n_chunks=caps["n_chunks"], seq_len=caps["seq_len"],
+        t_cap=caps["t_cap"])
+    packed = upload(trainer._pack(sets[0]), "cuda")
+    differ = [f for f in packed._fields if not (
+        getattr(gathered, f).dtype == getattr(packed, f).dtype
+        and torch.equal(getattr(gathered, f), getattr(packed, f)))]
+    log(f"[fit] assembled batch vs the packed upload of set 0 "
+        f"({packed.raw_emg.shape[0]} chunks, {len(ids)} utterances): "
+        f"fields differing {differ} (must be none)")
+    if differ:
+        raise AssertionError(f"assemble_batch differs from pack_batch in "
+                             f"{differ}")
+
+    # the bench's measurement, then train_step_ids beside train_step with
+    # host packing, on the same trainer in one call
+    ids_rates = bench.measure(bench.ids_steps(trainer, corpus, id_sets),
+                              trainer.device)
+    host_rates = bench.measure(
+        lambda i: trainer.train_step(trainer._pack(sets[i % 4]), 1e-3),
+        trainer.device)
+    print(json.dumps(bench.result_line(ids_rates)), flush=True)
+    shares = {}
+    for what, rates, step in (
+            ("train_step_ids (device corpus)", ids_rates,
+             bench.ids_steps(trainer, corpus, id_sets)),
+            ("train_step (host packing)", host_rates,
+             lambda i: trainer.train_step(trainer._pack(sets[i % 4]),
+                                          1e-3))):
+        prof = device_profile(
+            card, f"{bench.TRIAL_STEPS} steps of {what}",
+            lambda: [step(i) for i in range(bench.TRIAL_STEPS)], top=0,
+            cpu=False)
+        shares[what] = None if prof is None else 1 - prof[1] / prof[0]
+        log(f"[time] {card} | {what}: {np.round(rates, 3).tolist()} "
+            f"steps/s over trials of {bench.TRIAL_STEPS}, median "
+            f"{float(np.median(rates)):.3f}; idle share "
+            f"{'not measured' if prof is None else f'{shares[what]:.1%}'}")
+    del trainer, corpus
+    torch.cuda.empty_cache()
+
+    # fit() for 2 epochs over the 4 sets with validation, then resume
+    out_dir = os.path.join(work, "fit")
+    rng = np.random.default_rng(SEED + 4)
+    train_set = ExampleList([e for s in sets for e in s])
+    dev_set = ExampleList(bench.build_examples(rng, DEV_FRAMES))
+
+    def fit_trainer(seed, marks=None):
+        tr = TransductionTrainer(ModelConfig(), DataConfig(),
+                                 TransductionTrainConfig(
+                                     output_directory=out_dir),
+                                 device="cuda")
+        tr.init_state(seed)
+        calls = {"ids": [], "host": [], "eval": []}
+        for name, key in (("train_step_ids", "ids"), ("train_step", "host"),
+                          ("eval_step", "eval")):
+            _spy(tr, name, calls[key], marks)
+        return tr, calls
+
+    marks, events = [], []
+    first, calls = fit_trainer(SEED, marks)
+    reset_launches()
+    t0 = time.perf_counter()
+    prof = device_profile(
+        card, f"fit(), {FIT_EPOCHS} epochs on the device corpus with "
+        f"validation and checkpoints",
+        lambda: first.fit(train_set, dev_set, epochs=FIT_EPOCHS,
+                          seed=SEED), top=0, cpu=False, events=events)
+    fit_s = time.perf_counter() - t0
+    windows = step_windows(events, marks)
+    log(f"[fit] {card} | step windows of fit() (each epoch's first step "
+        f"to its validation, the once-an-epoch loss read included): " + (
+            "not measured: the marks on the card are not the calls made"
+            if not windows else "; ".join(
+                f"epoch {i + 1}: wall {w:.3f} ms, device busy {b:.3f} ms, "
+                f"idle share {1 - b / w:.1%}"
+                for i, (w, b) in enumerate(windows))))
+    saved = {k: v.detach().clone() for k, v in
+             first.model.state_dict().items()}
+    saved_opt = [m.clone() for m in first.optimizer.mu + first.optimizer.nu]
+    saved_gen = first.generator.get_state()
+    saved_count = first.optimizer.count
+    whole = ("not measured" if prof is None
+             else f"{1 - prof[1] / prof[0]:.1%}")
+    log(f"[fit] {FIT_EPOCHS} epochs: {len(calls['ids'])} train_step_ids "
+        f"steps, {len(calls['host'])} host-packed, {len(calls['eval'])} "
+        f"eval batches in {fit_s:.2f} s; idle share in the whole fit() "
+        f"window (corpus build, validations and checkpoints included) "
+        f"{whole}")
+    state = torch.load(os.path.join(out_dir, "model.pt"), map_location="cpu",
+                       weights_only=True)
+    model = EMGEncoder(80, 48, ModelConfig())
+    model.load_state_dict(state, strict=True)
+    if not _state_equal(model.state_dict(), saved):
+        raise AssertionError("model.pt is not the trained state")
+    del first, model, state
+    torch.cuda.empty_cache()
+
+    resumed, calls_2 = fit_trainer(SEED + 1)
+    restored = {}
+    step_ids = resumed.train_step_ids
+
+    def first_step(*args):
+        if not restored:
+            restored.update(
+                model=_state_equal(resumed.model.state_dict(), saved),
+                moments=all(torch.equal(a, b) for a, b in zip(
+                    resumed.optimizer.mu + resumed.optimizer.nu,
+                    saved_opt)),
+                generator=torch.equal(resumed.generator.get_state(),
+                                      saved_gen),
+                count=resumed.optimizer.count == saved_count)
+        return step_ids(*args)
+
+    resumed.train_step_ids = first_step
+    resumed.fit(train_set, dev_set, epochs=FIT_EPOCHS + 1, seed=SEED,
+                resume=True)
+    fit_launches = read_launches()
+    log(f"[fit] resumed for epoch {FIT_EPOCHS + 1}: "
+        f"{len(calls_2['ids'])} steps; the state before its first step "
+        f"equals the saved one: {restored}")
+    if not restored or not all(restored.values()):
+        raise AssertionError(f"resume restored another state: {restored}")
+
+    steps = calls["ids"] + calls_2["ids"]
+    evals = calls["eval"] + calls_2["eval"]
+    host_steps = calls["host"] + calls_2["host"]
+    silent = [sum(bool(train_set[i]["silent"]) for i in args[1])
+              for args, _ in steps]
+    layers = ModelConfig().num_layers
+    expected = {
+        "rel_attention_fwd": layers * (len(steps) + len(evals)),
+        "rel_attention_bwd": layers * len(steps),
+        "dtw_align": sum(1 for n in silent if n)
+        + sum(1 for (batch,), _ in evals if batch.num_silent),
+        "dtw_align_dp_only": 0}
+    log(f"[fit] launches in the fit() and resume windows {fit_launches} "
+        f"(expected {expected}: 6 forward and 6 backward attention and a "
+        f"DTW a step, 6 forward attention and a DTW a validation batch)")
+    if host_steps or not steps or any(o is None for _, o in steps):
+        raise AssertionError(f"fit() left the device-corpus path: "
+                             f"{len(host_steps)} host-packed steps")
+    if fit_launches != expected:
+        raise AssertionError(f"fit() launches {fit_launches}, expected "
+                             f"{expected}")
+    losses = torch.stack([o.loss for _, o in steps]).cpu().numpy()
+    log(f"[fit] step losses {np.round(losses, 4).tolist()}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("a fit() loss is not finite")
+
+    # get_aligned_prediction on a silent example: K1f at B=1, K2 at K=1
+    example = next(e for e in dev_set if e["silent"])
+    norm = FeatureNormalizer()
+    norm.feature_means = rng.normal(size=(1, 80)).astype(np.float32)
+    norm.feature_stddevs = np.float32(2.0)
+    captured = {}
+
+    def capture(costs, n1, n2, **kw):
+        out = dtw_align_batch(costs, n1, n2, **kw)
+        captured["args"] = (costs.clone(), n1.clone(), n2.clone(),
+                            out[0].clone())
+        return out
+
+    reset_launches()
+    with swapped(transduction, "dtw_align_batch", capture):
+        aligned = resumed.get_aligned_prediction(example, norm)
+    aligned_launches = read_launches()
+    costs, n1, n2, ours = captured["args"]
+    plain = dtw_align_batch_plain(costs, n1, n2)[0]
+    t_tgt = example["parallel_voiced_audio_features"].shape[0]
+    ok = (aligned.shape == (t_tgt, 80) and np.isfinite(aligned).all()
+          and torch.equal(ours, plain) and aligned_launches == {
+              "rel_attention_fwd": layers, "rel_attention_bwd": 0,
+              "dtw_align": 1, "dtw_align_dp_only": 0})
+    log(f"[fit] get_aligned_prediction of a silent utterance (T "
+        f"{example['emg'].shape[0]} frames, target {t_tgt}): output "
+        f"{aligned.shape}, finite {np.isfinite(aligned).all()}, DTW K=1 "
+        f"f32 costs {tuple(costs.shape)} alignment equal to the plain "
+        f"version's: {torch.equal(ours, plain)}; launches "
+        f"{aligned_launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("get_aligned_prediction failed")
+    logging.getLogger().removeHandler(handler)
+    return fit_launches, aligned_launches, (costs, n1, n2)
+
+
+def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs):
+    """Phase 6, kernels: ms per launch at the main path's shapes, against
     the bound and the plain version. Returns the kernels JSON entries."""
     import torch
     from silent_speech_tpu_torch.ops.dtw import (
@@ -977,10 +1253,26 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
 
     shape = f"B={b} H=8 T={t} d_h=96 m=100 bf16 dropout 0.2"
 
+    # the DTW of get_aligned_prediction: K = 1, f32 costs
+    a_costs, a_n1, a_n2 = aligned_inputs
+    a_ms = cuda_time_ms(lambda: dtw_align_batch(a_costs, a_n1, a_n2),
+                        iters=10)
+    a_plain = cuda_time_ms(lambda: dtw_align_batch_plain(a_costs, a_n1,
+                                                         a_n2),
+                           iters=1, warmup=1)
+    a_bound = dtw_bound(a_n1.cpu().numpy(), a_n2.cpu().numpy(),
+                        a_costs.shape[1], 4)
+    a_shape = f"K=1 T1={a_costs.shape[1]} T2={a_costs.shape[2]} f32 costs"
+    log(f"[time] {card} | dtw_align {a_shape} (get_aligned_prediction): "
+        f"kernel {a_ms:.4f} ms/launch, plain {a_plain:.2f} ms, bound "
+        f"{a_bound[0]:.5f} ms ({a_bound[1]}), {a_bound[0] / a_ms:.2%} of "
+        f"bound")
+
     def launches(name):
-        return {"launches": serve_launches[name] + train_launches[name],
-                "launches_by_path": {"serve": serve_launches[name],
-                                     "train": train_launches[name]}}
+        by_path = {path: counts[name]
+                   for path, counts in path_launches.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
 
     return [
         {"name": "rel_attention_fwd", "route": "cuda",
@@ -1016,7 +1308,10 @@ def time_kernels(card, train_launches, serve_launches, errs, dtw_inputs):
          "ns_per_diagonal": dtw_ms * 1e6 / diagonals,
          "backtrace_ms": dtw_ms - dp_ms,
          "plain_ms": dtw_plain, "bound_ms": dtw_b[0],
-         "bound_by": dtw_b[1], "library_ms": None},
+         "bound_by": dtw_b[1], "library_ms": None,
+         "aligned_prediction": {"shape": a_shape, "ms": a_ms,
+                                "plain_ms": a_plain, "bound_ms": a_bound[0],
+                                "bound_by": a_bound[1]}},
         {"name": "dtw_align_dp_only", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/dtw.cu",
          "replaces": "tools/prof_dtw.py:136",
@@ -1078,9 +1373,20 @@ def main() -> int:
     # 4. train -------------------------------------------------------------
     train_launches, _, dtw_inputs = train(card)
 
-    # 5. kernel timings ----------------------------------------------------
-    kernels = time_kernels(card, train_launches, serve_launches, errs,
-                           dtw_inputs)
+    # 5. the training run --------------------------------------------------
+    work = tempfile.mkdtemp(prefix="chip_smoke_fit_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        fit_launches, aligned_launches, aligned_inputs = train_run(card,
+                                                                   work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # 6. kernel timings ----------------------------------------------------
+    kernels = time_kernels(
+        card, {"serve": serve_launches, "train": train_launches,
+               "fit": fit_launches, "aligned_prediction": aligned_launches},
+        errs, dtw_inputs, aligned_inputs)
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the card was "
         f"found")
 

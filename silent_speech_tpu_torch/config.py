@@ -1,10 +1,11 @@
 """Typed configuration: the fields of the JAX package's configuration
-(``silent_speech_tpu/config.py``) that the eval forward and the
-transduction training step need, with the same names and defaults."""
+(``silent_speech_tpu/config.py``) that the eval forward, the transduction
+trainer and its dataset need, with the same names and defaults."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 
 @dataclass
@@ -28,9 +29,19 @@ class ModelConfig:
 
 @dataclass
 class DataConfig:
-    """Packing of training batches (reference ``transduction_model.py:191``
-    for ``seq_len``)."""
+    """Dataset discovery (reference ``read_emg.py:21-25``) and the packing
+    of training batches (reference ``transduction_model.py:191`` for
+    ``seq_len``)."""
 
+    remove_channels: List[int] = field(default_factory=list)
+    silent_data_directories: List[str] = field(
+        default_factory=lambda: ["./emg_data/silent_parallel_data"])
+    voiced_data_directories: List[str] = field(
+        default_factory=lambda: ["./emg_data/voiced_parallel_data",
+                                 "./emg_data/nonparallel_data"])
+    testset_file: str = "testset_largedev.json"
+    text_align_directory: str = "text_alignments"
+    normalizers_file: str = "normalizers.pkl"
     seq_len: int = 200     # frames per packed chunk; raw chunks are 8x
     chunk_bucket: int = 8  # round the chunk count up to a multiple of this
     # pad every batch to the capacity-derived caps below, so that every
@@ -38,19 +49,29 @@ class DataConfig:
     fixed_shapes: bool = True
     utt_cap: int = 64      # utterances per packed batch
     t_cap: int = 1024      # frames per utterance (about 12 s at 86 fps)
+    # keep the training corpus on the device and assemble each batch there
+    # from its utterance ids (``data/device_cache.py``); needs fixed_shapes
+    device_cache: bool = True
+    # share of the card's memory the corpus may take; over it, training
+    # packs on the host. <= 0 disables the check
+    cache_hbm_fraction: float = 0.4
 
 
 @dataclass
 class TransductionTrainConfig:
     """EMG→mel training (reference ``transduction_model.py:22-31``)."""
 
+    epochs: int = 80
     learning_rate: float = 1e-3
     learning_rate_patience: int = 5
     learning_rate_warmup: int = 500
+    start_training_from: Optional[str] = None
+    data_size_fraction: float = 1.0
     phoneme_loss_weight: float = 0.5
     l2: float = 1e-7
     # Adam moment storage; the update math is float32 either way
     moment_dtype: str = "bfloat16"
+    output_directory: str = "output"
     # batch capacity in raw-recording EMG samples
     # (reference ``transduction_model.py:166``)
     max_batch_len: int = 256000

@@ -7,14 +7,18 @@ time, zero-padded and cut into ``(N, seq_len, ·)`` chunks
 (reference ``data_utils.py:158-167``), and per-utterance views are gathered
 from the flattened model output with precomputed ``(U, T_max)`` indices.
 With the fixed caps of the trainer every batch has one shape.
+``DeviceBatch`` holds the tensors of a batch that the training step reads,
+on the device; ``upload`` makes one from a ``PackedBatch``, and
+``data/device_cache.assemble_batch`` one from utterance ids.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 # silent-count bucket: the number of leading silent utterances is rounded
 # up to a multiple of this. At most SILENT_BUCKET−1 real voiced utterances
@@ -219,3 +223,21 @@ def pack_batch(examples: Sequence[dict], seq_len: int = 200,
         texts=[e.get("text", "") for e in examples],
         num_silent=num_silent,
     )
+
+
+class DeviceBatch(NamedTuple):
+    """The tensors of a ``PackedBatch`` that the step reads, on the
+    device."""
+
+    raw_emg: torch.Tensor
+    utt_gather_idx: torch.Tensor
+    utt_len: torch.Tensor
+    target_len: torch.Tensor
+    phonemes: torch.Tensor
+    silent: torch.Tensor
+    audio_features: torch.Tensor
+
+
+def upload(batch: PackedBatch, device: torch.device) -> DeviceBatch:
+    return DeviceBatch(*(torch.from_numpy(np.ascontiguousarray(
+        getattr(batch, name))).to(device) for name in DeviceBatch._fields))

@@ -1,0 +1,161 @@
+"""CLI: train the EMG→mel transduction model.
+
+Counterpart of the JAX package's root ``transduction_model.py``, with its
+transduction and data flags under the same names and defaults
+(``silent_speech_tpu/config.py:193-279``) plus ``--device``::
+
+    python -m silent_speech_tpu_torch.transduction_model \\
+        --silent_data_directories DIR --voiced_data_directories DIR \\
+        --testset_file F --text_align_directory DIR --normalizers_file F \\
+        --output_directory run/ [--resume] [--device cpu]
+
+It trains with warmup × plateau AdamW, validates each epoch, and writes
+``log.txt``, ``checkpoint.pt`` (the full train state, which ``--resume``
+continues from) and the reference-layout ``model.pt`` into
+``--output_directory``. It runs on the card unless ``--device cpu``.
+Booleans take the JAX CLI's forms: ``--resume``, ``--noresume``,
+``--fixed_shapes=false``; lists are comma-separated. The vocoder and ASR
+evaluation of the JAX CLI are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+from typing import Optional, Sequence
+
+from .config import DataConfig, ModelConfig, TransductionTrainConfig
+
+
+def _bool(value: str) -> bool:
+    v = value.lower()
+    if v in ("1", "true", "t", "yes", "y"):
+        return True
+    if v in ("0", "false", "f", "no", "n"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {value!r}")
+
+
+def _list(value: str):
+    return [v for v in value.split(",") if v]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="Train the EMG→mel "
+                                 "transduction model (PyTorch port).")
+    m, d, t = ModelConfig(), DataConfig(), TransductionTrainConfig()
+
+    def flag(name, default, help_, type_=None):
+        if type_ is _bool:
+            ap.add_argument(f"--{name}", nargs="?", const=True,
+                            default=default, type=_bool, help=help_)
+            ap.add_argument(f"--no{name}", dest=name, action="store_false",
+                            help=argparse.SUPPRESS)
+        else:
+            ap.add_argument(f"--{name}", default=default,
+                            type=type_ or type(default), help=help_)
+
+    # architecture.py:10-12
+    flag("model_size", m.model_size, "number of hidden dimensions")
+    flag("num_layers", m.num_layers, "number of layers")
+    flag("dropout", m.dropout, "dropout")
+    # transduction_model.py:22-31
+    flag("batch_size", 32, "training batch size (unused, as in the "
+         "reference: batches are filled to --max_batch_len)")
+    flag("epochs", t.epochs, "number of training epochs")
+    flag("learning_rate", t.learning_rate, "learning rate")
+    flag("learning_rate_patience", t.learning_rate_patience,
+         "learning rate decay patience")
+    flag("learning_rate_warmup", t.learning_rate_warmup,
+         "steps of linear warmup")
+    flag("start_training_from", None, "start training from this model",
+         str)
+    flag("data_size_fraction", t.data_size_fraction,
+         "fraction of training data to use")
+    flag("phoneme_loss_weight", t.phoneme_loss_weight,
+         "weight of auxiliary phoneme loss")
+    flag("l2", t.l2, "weight decay")
+    flag("output_directory", t.output_directory, "output directory")
+    # read_emg.py:21-25, data_utils.py:15
+    flag("remove_channels", d.remove_channels, "channels to remove", _list)
+    flag("silent_data_directories", d.silent_data_directories,
+         "silent data locations", _list)
+    flag("voiced_data_directories", d.voiced_data_directories,
+         "voiced data locations", _list)
+    flag("testset_file", d.testset_file, "file with testset indices")
+    flag("text_align_directory", d.text_align_directory,
+         "alignment file directory")
+    flag("normalizers_file", d.normalizers_file,
+         "pickled feature normalizers")
+    # the JAX package's additions that the port shares
+    flag("chunk_bucket", d.chunk_bucket,
+         "pad packed batches to a multiple of this many chunks")
+    flag("compute_dtype", m.compute_dtype,
+         "encoder compute dtype (bfloat16|float32)")
+    flag("resume", False, "resume training from the output_directory "
+         "checkpoint (full state incl. schedules)", _bool)
+    flag("fixed_shapes", d.fixed_shapes, "pad every batch to capacity "
+         "caps, so every step has one shape", _bool)
+    flag("max_batch_len", 0, "length-packed batch capacity in raw EMG "
+         "samples (0 = the default, 256000)")
+    flag("t_cap", d.t_cap, "fixed-shape cap on per-utterance frames")
+    flag("utt_cap", d.utt_cap, "fixed-shape cap on utterances per batch")
+    # the port's own
+    flag("device", "cuda", "torch device to train on (cuda or cpu)")
+    return ap
+
+
+def configs_from_args(args):
+    model = ModelConfig(model_size=args.model_size,
+                        num_layers=args.num_layers, dropout=args.dropout,
+                        compute_dtype=args.compute_dtype)
+    data = DataConfig(
+        remove_channels=[int(c) for c in args.remove_channels],
+        silent_data_directories=list(args.silent_data_directories),
+        voiced_data_directories=list(args.voiced_data_directories),
+        testset_file=args.testset_file,
+        text_align_directory=args.text_align_directory,
+        normalizers_file=args.normalizers_file,
+        chunk_bucket=args.chunk_bucket, fixed_shapes=args.fixed_shapes,
+        t_cap=args.t_cap, utt_cap=args.utt_cap)
+    train = TransductionTrainConfig(
+        epochs=args.epochs,
+        learning_rate=args.learning_rate,
+        learning_rate_patience=args.learning_rate_patience,
+        learning_rate_warmup=args.learning_rate_warmup,
+        start_training_from=args.start_training_from,
+        data_size_fraction=args.data_size_fraction,
+        phoneme_loss_weight=args.phoneme_loss_weight, l2=args.l2,
+        output_directory=args.output_directory)
+    if args.max_batch_len:
+        train.max_batch_len = args.max_batch_len
+    return model, data, train
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    from .data.dataset import EMGDataset
+    from .train.transduction import TransductionTrainer
+    from .utils.device import resolve_device
+    from .utils.run_logging import (log_device_info, log_run_provenance,
+                                    setup_run_logging)
+
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)  # no card: raise before any work
+    model_cfg, data_cfg, train_cfg = configs_from_args(args)
+    setup_run_logging(train_cfg.output_directory)
+    log_run_provenance()
+
+    trainset = EMGDataset(data_cfg, dev=False, test=False)
+    devset = EMGDataset(data_cfg, dev=True)
+    logging.info("output example: %s", devset.example_indices[0])
+    logging.info("train / dev split: %d %d", len(trainset), len(devset))
+
+    trainer = TransductionTrainer(model_cfg, data_cfg, train_cfg,
+                                  device=device)
+    log_device_info(trainer.device)
+    trainer.fit(trainset, devset, seed=0, resume=args.resume)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+from silent_speech_tpu_torch import bench, transduction_model
 from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
                                             TransductionTrainConfig)
+from silent_speech_tpu_torch.data.dataset import ExampleList
 from silent_speech_tpu_torch.eval import export, server
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.ops import build
@@ -17,7 +19,8 @@ from silent_speech_tpu_torch.train.transduction import TransductionTrainer
 from silent_speech_tpu_torch.utils.device import card_info, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "silent_speech_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "absl",
+             "silent_speech_tpu")
 PORT_FILES = sorted((ROOT / "silent_speech_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -41,6 +44,13 @@ def test_imports_nothing_of_jax(path):
     for name in _imported(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_names_no_absl(path):
+    # the card's machine has no absl: the port's CLIs parse with argparse
+    assert "absl" not in path.read_text(), path.name
 
 
 @pytest.fixture
@@ -105,3 +115,43 @@ def test_trainer_runs_on_the_cpu_only_when_asked():
 def test_kernel_build_raises_on_a_missing_source():
     with pytest.raises(FileNotFoundError):
         build.build(["no_such_kernel"])
+
+
+def _tiny_trainer(device, out_dir):
+    cfg = ModelConfig(model_size=32, num_layers=1, num_heads=2,
+                      dim_feedforward=64, relative_positional_distance=4,
+                      compute_dtype="float32")
+    return TransductionTrainer(
+        cfg, DataConfig(seq_len=20, fixed_shapes=False),
+        TransductionTrainConfig(output_directory=str(out_dir)),
+        device=device)
+
+
+def _examples():
+    rng = np.random.default_rng(0)
+    return ExampleList([{
+        "emg": np.zeros((30, 112), np.float32),
+        "raw_emg": rng.normal(size=(240, 8)).astype(np.float32),
+        "session_ids": np.zeros(30, np.int64), "silent": False,
+        "text": "a b", "text_int": np.zeros(3, np.int64),
+        "audio_features": rng.normal(size=(30, 80)).astype(np.float32),
+        "phonemes": rng.integers(0, 48, size=30)} for _ in range(2)])
+
+
+def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
+    data = _examples()
+    for call in (lambda: bench.main([]),
+                 lambda: bench.main(["--tiny"]),
+                 lambda: transduction_model.main(
+                     ["--output_directory", str(tmp_path)]),
+                 lambda: _tiny_trainer("cuda", tmp_path).fit(data, data)):
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            call()
+    assert not any(tmp_path.iterdir())   # raised before any work
+
+
+def test_fit_runs_on_the_cpu_only_when_asked(tmp_path):
+    trainer = _tiny_trainer("cpu", tmp_path)
+    model = trainer.fit(_examples(), _examples(), epochs=1)
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    assert (tmp_path / "model.pt").is_file()

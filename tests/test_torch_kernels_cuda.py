@@ -346,3 +346,69 @@ def test_encoder_forward_on_card_matches_cpu(card):
         out = model.to("cuda")(raw.to("cuda"), valid_len=200)
     for o, r in zip(out, ref):
         torch.testing.assert_close(o.cpu(), r, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("t1,t2", [(1, 1), (731, 677), (33, 1000),
+                                   (1000, 33), (4096, 517)])
+def test_dtw_kernel_at_one_utterance_in_f32(card, t1, t2):
+    # get_aligned_prediction's shape: K = 1, f32 costs, odd lengths
+    rng = np.random.default_rng(t1 + t2)
+    costs = torch.from_numpy(rng.uniform(0.1, 2.0, size=(1, t1, t2))
+                             .astype(np.float32)).cuda()
+    n1, n2 = (torch.tensor([n], dtype=torch.int32, device="cuda")
+              for n in (t1, t2))
+    _dtw_matches_plain(costs, n1, n2)
+
+
+def _tiny_trainer(device):
+    from silent_speech_tpu_torch.train.transduction import \
+        TransductionTrainer
+
+    cfg = ModelConfig(model_size=64, num_layers=2, num_heads=2,
+                      dim_feedforward=128, relative_positional_distance=16,
+                      compute_dtype="float32")
+    trainer = TransductionTrainer(cfg, device=device)
+    trainer.init_state(0)
+    return trainer
+
+
+def _silent_example(t=77, t_tgt=83):
+    rng = np.random.default_rng(1)
+    return {"emg": np.zeros((t, 112), np.float32),
+            "raw_emg": rng.normal(size=(8 * t, 8)).astype(np.float32),
+            "silent": True,
+            "parallel_voiced_audio_features": rng.normal(
+                size=(t_tgt, 80)).astype(np.float32)}
+
+
+def test_predict_at_one_utterance_matches_the_cpu(card):
+    # K1f at B = 1 with the JAX trainer's padding (77 frames → 96)
+    example = _silent_example()
+    cpu = _tiny_trainer("cpu").predict(example)
+    before = rel_attention.launches
+    out = _tiny_trainer("cuda").predict(example)
+    assert rel_attention.launches == before + 2
+    np.testing.assert_allclose(out, cpu, rtol=0, atol=1e-4)
+
+
+def test_get_aligned_prediction_runs_the_dtw_kernel(card):
+    from silent_speech_tpu_torch.data.normalizers import FeatureNormalizer
+
+    trainer = _tiny_trainer("cuda")
+    example = _silent_example()
+    norm = FeatureNormalizer()
+    norm.feature_means = np.full((1, 80), 0.5, np.float32)
+    norm.feature_stddevs = np.float32(2.0)
+    before = dtw_align_batch.launches
+    out = trainer.get_aligned_prediction(example, norm)
+    assert dtw_align_batch.launches == before + 1
+    pred = trainer.predict(example)
+    y = example["parallel_voiced_audio_features"]
+    costs = np.sqrt(np.clip((pred ** 2).sum(-1)[:, None]
+                            + (y ** 2).sum(-1)[None, :] - 2 * pred @ y.T,
+                            1e-12, None))
+    align, _ = dtw_align_batch_plain(
+        torch.from_numpy(np.ascontiguousarray(costs.T))[None],
+        torch.tensor([y.shape[0]]), torch.tensor([pred.shape[0]]))
+    np.testing.assert_array_equal(out, norm.inverse(pred[align[0].numpy()]))
+    assert out.shape == (83, 80)
