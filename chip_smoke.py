@@ -11,9 +11,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one process per source, all started together;
 2. hold each kernel against its plain PyTorch version on the card: the
    attention forward (bf16 runs one WMMA kernel, f32 the f32 one; serving
-   shapes and the training shape with dropout; two bf16 calls at the
+   shapes and the training shapes with dropout, the recognition
+   micro-step's B=64 among them; two bf16 calls at the transduction
    training shape must be bit-equal), the attention backward (bf16 and
-   f32, dropout off and on; bf16 runs four staged WMMA kernels, f32 one
+   f32, dropout off and on, also at B=64; bf16 runs four staged WMMA kernels, f32 one
    kernel and a fixed-order sum of its partials; two calls at the training
    shape must be bit-equal in each dtype) and the DTW alignment with its
    DP-only mode (prof_dtw's shape with the n ∈ {1, 2} edge cases, T2 =
@@ -52,15 +53,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``get_aligned_prediction`` of a silent utterance: 6 forward attention
    launches at B=1 and one DTW at K=1 whose alignment equals the plain
    version's;
-6. time the requests per bucket, the forward per bucket, the training
+6. recognition: the same 4 sets with each text spelled from its character
+   ids, a validation set, a bigram ARPA LM of the training texts (written
+   here) and the native beam search built from
+   ``silent_speech_tpu_torch/native``; a full-width recognizer (38 outputs,
+   bf16, dropout 0.2, shift, gradient accumulation 2, 64 chunks of 200)
+   prints its micro-steps/s on the device corpus and, under the profiler,
+   device busy per micro-step and per update and the idle share; ``fit()``
+   for 2 epochs with beam-decoded validation WER, then a resumed 3rd epoch
+   whose state before its first micro-step (accumulator included) must
+   equal the saved one; the counts zeroed before the first fit and read
+   after the resume: 6 forward and 6 backward attention launches a
+   micro-step, 6 forward a validation utterance; the weights must move at
+   every second micro-step only; the native beam against the plain one on
+   one utterance; an f32 micro-step with the kernels against the plain
+   attention; the trained ``model.pt`` exported and one ``/v1/recognize``
+   answered from it (6 forward launches);
+7. time the requests per bucket, the forward per bucket, the training
    steps (median of 3 synced trials) and each kernel per launch at the
    main path's shapes against its bound and its plain version (the bf16
    attention forward also by its device time per launch under the
    profiler, the bf16 attention backward also stage by stage, the DTW's
    DP-only mode also in ns a diagonal and with its backtrace's share, both
    DTW modes also by device time per launch, the DTW also at
-   get_aligned_prediction's K=1 f32 shape, both
-   attention kernels also in f32, and PyTorch's
+   get_aligned_prediction's K=1 f32 shape, both attention kernels also at
+   the recognition micro-step's B=64 and in f32, and PyTorch's
    scaled_dot_product_attention with the relative bias precomputed as a
    yardstick for the bf16 forward, not the same function and never
    called by the port), and
@@ -100,7 +117,10 @@ KERNEL_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
 KERNEL_CASES = ((1, 256, 256), (1, 1024, 1024), (1, 2048, 2048),
                 (1, 256, 37), (1, 64, 64))
 TRAIN_BT = (120, 200)              # attention (B, T) of the training step
-DROP_CASES = ((4, 200), TRAIN_BT, (1, 1024))    # (B, T), L = T, rate 0.2
+# a recognition micro-step's: 128,000 raw samples are 11,024 frames, 56 + 2
+# chunks of 200, rounded up to the chunk bucket 8
+REC_BT = (64, 200)
+DROP_CASES = ((4, 200), TRAIN_BT, REC_BT, (1, 1024))  # (B, T), L = T
 # backward vs autograd through the plain version, relative to each
 # gradient's largest entry: f32 sums in another order (dK, dV, dE as
 # per-tile partials summed in a fixed order); bf16 rounds P', dS and dR to
@@ -137,6 +157,10 @@ COMPARED_GRADS = ("conv_blocks.0.conv1.weight",
 
 FIT_EPOCHS = 2                     # then resumed for one more
 DEV_FRAMES = 6000                  # the validation set: one eval batch
+REC_PROFILED_STEPS = 8             # 4 updates at gradient accumulation 2
+# the native and the plain beam search agree exactly at this width; at 100
+# they can part on a near-tie of two prefixes (log1p against log of a sum)
+REC_BEAM_CHECK = 16
 
 
 def log(msg: str) -> None:
@@ -367,6 +391,7 @@ def check_kernels():
 
     drop = attention_drop_threshold(0.2)
     train_case = (*TRAIN_BT, drop)
+    rec_case = (*REC_BT, drop)
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
@@ -394,6 +419,8 @@ def check_kernels():
             if not ok:
                 raise AssertionError(f"rel_attention_fwd disagrees with its "
                                      f"plain version: {name} B={b} T={t}")
+            if (b, t, thresh) == rec_case:
+                errs[("rel_attention_fwd_recognition", name)] = err
             if (b, t, thresh) == train_case:
                 errs[("rel_attention_fwd", name)] = err
                 errs[("rel_attention_fwd_unrounded", name)] = unrounded
@@ -408,7 +435,8 @@ def check_kernels():
                         raise AssertionError("the bf16 attention forward "
                                              "is not deterministic")
 
-        for b, t, thresh in ((4, 200, 0), (4, 200, drop), train_case):
+        for b, t, thresh in ((4, 200, 0), (4, 200, drop), rec_case,
+                             train_case):
             q, k, v, e = attention_inputs(b, t, dtype, seed=5)
             g = torch.Generator(device="cuda").manual_seed(6)
             dout = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
@@ -432,6 +460,8 @@ def check_kernels():
                     raise AssertionError(f"rel_attention_bwd disagrees with "
                                          f"autograd: {name} B={b} {gname}")
                 case_err = max(case_err, err)
+            if (b, t, thresh) == rec_case:
+                errs[("rel_attention_bwd_recognition", name)] = case_err
             if (b, t, thresh) == train_case:
                 errs[("rel_attention_bwd", name)] = case_err
                 again = rel_attention_bwd(q, k, v, e, dout, 100, None, 13,
@@ -1121,8 +1151,318 @@ def train_run(card, work):
     return fit_launches, aligned_launches, (costs, n1, n2)
 
 
+def write_bigram_arpa(sentences, path) -> None:
+    """A word bigram ARPA LM of ``sentences``: maximum-likelihood
+    probabilities, back-off weights of 1, and ``<unk>`` at half a count."""
+    import math
+    from collections import Counter
+
+    uni, bi = Counter(), Counter()
+    for sentence in sentences:
+        words = ["<s>", *sentence.split(), "</s>"]
+        uni.update(words)
+        bi.update(zip(words, words[1:]))
+    total = sum(uni.values())
+    lines = ["\\data\\", f"ngram 1={len(uni) + 1}", f"ngram 2={len(bi)}",
+             "", "\\1-grams:", f"{math.log10(0.5 / total):.6f}\t<unk>\t0"]
+    lines += [f"{math.log10(c / total):.6f}\t{w}\t0"
+              for w, c in sorted(uni.items())]
+    lines += ["", "\\2-grams:"]
+    lines += [f"{math.log10(c / uni[a]):.6f}\t{a} {b}"
+              for (a, b), c in sorted(bi.items())]
+    with open(path, "w") as f:
+        f.write("\n".join(lines + ["", "\\end\\", ""]))
+
+
+def recognition_run(card, work):
+    """Phase 6: recognition training and evaluation at full width. Returns
+    the launches of the fit() and resume window and of one served
+    request."""
+    import types
+
+    import torch
+    from silent_speech_tpu_torch import bench
+    from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
+                                                RecognitionTrainConfig)
+    from silent_speech_tpu_torch.data.dataset import ExampleList
+    from silent_speech_tpu_torch.data.sampler import SizeAwareSampler
+    from silent_speech_tpu_torch.eval import export
+    from silent_speech_tpu_torch.eval.decode import (beam_ctc_decode,
+                                                     beam_ctc_decode_plain)
+    from silent_speech_tpu_torch.eval.server import ServingServer
+    from silent_speech_tpu_torch.models import transformer
+    from silent_speech_tpu_torch.models.encoder import EMGEncoder
+    from silent_speech_tpu_torch.ops.rel_attention import rel_attention_plain
+    from silent_speech_tpu_torch.text import TextTransform
+    from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
+    from silent_speech_tpu_torch.utils import native
+
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("[rec.log] %(message)s"))
+    logging.getLogger().addHandler(handler)
+
+    # the bench's 4 sets and a validation set, each text spelled from its
+    # characters, and a bigram LM of the training texts
+    tt = TextTransform()
+
+    def spelled(examples):
+        return [dict(e, text=tt.int_to_text(e["text_int"]))
+                for e in examples]
+
+    train_set = ExampleList([e for s in bench.example_sets()
+                             for e in spelled(s)])
+    dev_set = ExampleList(spelled(bench.build_examples(
+        np.random.default_rng(SEED + 5), DEV_FRAMES)))
+    lm_path = os.path.join(work, "lm.arpa")
+    write_bigram_arpa([e["text"] for e in train_set], lm_path)
+    t0 = time.perf_counter()
+    lib = native.build()
+    log(f"[rec] native beam search {os.path.basename(lib)} ready in "
+        f"{time.perf_counter() - t0:.2f} s; {len(train_set)} training and "
+        f"{len(dev_set)} validation utterances, bigram LM of the training "
+        f"texts")
+    out_dir = os.path.join(work, "fit")
+
+    def trainer(seed, **model_kw):
+        tr = RecognitionTrainer(
+            ModelConfig(**model_kw), DataConfig(),
+            RecognitionTrainConfig(output_directory=out_dir,
+                                   lm_path=lm_path), device="cuda")
+        tr.init_state(seed)
+        return tr
+
+    # micro-steps a second of train_step_ids on the device corpus
+    tr = trainer(SEED)
+    corpus = tr.build_corpus(train_set)
+    id_batches = list(SizeAwareSampler(train_set, tr.train_cfg.max_batch_len,
+                                       seed=SEED))
+    caps = tr._cache_caps()
+    if (caps["n_chunks"], caps["seq_len"]) != REC_BT or not all(
+            tr._cache_fits(corpus, ids) for ids in id_batches):
+        raise AssertionError(f"recognition caps {caps} are not {REC_BT}, or "
+                             f"a batch does not fit them")
+
+    def step(i):
+        out = tr.train_step_ids(corpus, id_batches[i % len(id_batches)],
+                                1e-4)
+        return types.SimpleNamespace(loss=out)
+
+    rates = bench.measure(step, tr.device)
+    if tr.optimizer.mini_step:
+        step(0)   # start the profiled window on a group's first micro-step
+    prof = device_profile(
+        card, f"{REC_PROFILED_STEPS} recognition micro-steps of "
+        f"train_step_ids", lambda: [step(i) for i in
+                                    range(REC_PROFILED_STEPS)],
+        top=0, cpu=False)
+    busy = "not measured" if prof is None else (
+        f"device busy {prof[1] / REC_PROFILED_STEPS:.3f} ms a micro-step, "
+        f"{2 * prof[1] / REC_PROFILED_STEPS:.3f} ms an update, idle share "
+        f"{1 - prof[1] / prof[0]:.1%}")
+    log(f"[time] {card} | recognition train_step_ids (B={REC_BT[0]} chunks "
+        f"x {REC_BT[1]}, bf16, dropout 0.2, accumulation 2): "
+        f"{np.round(rates, 3).tolist()} micro-steps/s over trials of "
+        f"{bench.TRIAL_STEPS}, median {float(np.median(rates)):.3f} "
+        f"({float(np.median(rates)) / 2:.3f} updates/s); {busy}")
+    del tr, corpus
+    torch.cuda.empty_cache()
+
+    # fit() for 2 epochs with validation WER, then a resumed 3rd epoch;
+    # each micro-step's weights before and after it
+    def watched(tr):
+        calls = {"ids": [], "host": [], "wer": [], "moves": []}
+        ids_step, host_step, wer = (tr.train_step_ids, tr.train_step,
+                                    tr.evaluate_wer)
+
+        def flat():
+            return torch.cat([p.detach().flatten()
+                              for p in tr.model.parameters()])
+
+        def on_ids(*args):
+            before = flat()
+            out = ids_step(*args)
+            calls["moves"].append((tr.optimizer.mini_step == 0,
+                                   not torch.equal(before, flat())))
+            calls["ids"].append(out)
+            return out
+
+        def on_host(*args):
+            calls["host"].append(args)
+            return host_step(*args)
+
+        def on_wer(*args):
+            calls["wer"].append(wer(*args))
+            return calls["wer"][-1]
+
+        tr.train_step_ids, tr.train_step, tr.evaluate_wer = (
+            on_ids, on_host, on_wer)
+        return calls
+
+    first = trainer(SEED)
+    calls = watched(first)
+    reset_launches()
+    t0 = time.perf_counter()
+    first.fit(train_set, dev_set, epochs=FIT_EPOCHS, seed=SEED)
+    fit_s = time.perf_counter() - t0
+    opt = first.optimizer
+    saved = ({k: v.detach().clone() for k, v in
+              first.model.state_dict().items()},
+             [m.clone() for m in opt.mu + opt.nu + opt.acc],
+             (opt.count, opt.mini_step), first.generator.get_state())
+    state = torch.load(os.path.join(out_dir, "model.pt"), map_location="cpu",
+                       weights_only=True)
+    if not _state_equal(EMGEncoder.from_state_dict(state).state_dict(),
+                        saved[0]):
+        raise AssertionError("model.pt is not the trained state")
+    del first, state
+    torch.cuda.empty_cache()
+
+    resumed = trainer(SEED + 1)
+    calls_2 = watched(resumed)
+    restored = {}
+    ids_step = resumed.train_step_ids
+
+    def first_step(*args):
+        if not restored:
+            o = resumed.optimizer
+            restored.update(
+                model=_state_equal(resumed.model.state_dict(), saved[0]),
+                moments_and_accumulator=all(torch.equal(a, b) for a, b in zip(
+                    o.mu + o.nu + o.acc, saved[1])),
+                count_and_micro_step=(o.count, o.mini_step) == saved[2],
+                generator=torch.equal(resumed.generator.get_state(),
+                                      saved[3]))
+        return ids_step(*args)
+
+    resumed.train_step_ids = first_step
+    t0 = time.perf_counter()
+    resumed.fit(train_set, dev_set, epochs=FIT_EPOCHS + 1, seed=SEED,
+                resume=True)
+    resume_s = time.perf_counter() - t0
+    fit_launches = read_launches()
+    steps = calls["ids"] + calls_2["ids"]
+    moves = calls["moves"] + calls_2["moves"]
+    wers = calls["wer"] + calls_2["wer"]
+    layers = ModelConfig().num_layers
+    expected = {"rel_attention_fwd": layers * (len(steps)
+                                               + len(wers) * len(dev_set)),
+                "rel_attention_bwd": layers * len(steps),
+                "dtw_align": 0, "dtw_align_dp_only": 0}
+    losses = torch.stack(steps).cpu().numpy()
+    emit = [i % 2 == 1 for i in range(len(steps))]
+    log(f"[rec] fit(): {len(calls['ids'])} micro-steps in {FIT_EPOCHS} "
+        f"epochs in {fit_s:.2f} s, then {len(calls_2['ids'])} resumed in "
+        f"{resume_s:.2f} s, {len(calls['host']) + len(calls_2['host'])} "
+        f"host-packed; validation WER {np.round(wers, 4).tolist()}; "
+        f"losses {np.round(losses, 3).tolist()}")
+    log(f"[rec] launches in the fit() and resume windows {fit_launches} "
+        f"(expected {expected}: 6 forward and 6 backward attention a "
+        f"micro-step, 6 forward a validation utterance)")
+    log(f"[rec] the weights moved at micro-steps "
+        f"{[i + 1 for i, (_, m) in enumerate(moves) if m]} of "
+        f"{len(moves)} (every second); the resumed state before its first "
+        f"micro-step equals the saved one: {restored}")
+    if calls["host"] or calls_2["host"] or any(o is None for o in steps):
+        raise AssertionError("fit() left the device-corpus path")
+    if fit_launches != expected:
+        raise AssertionError(f"fit() launches {fit_launches}, expected "
+                             f"{expected}")
+    if [e for e, _ in moves] != emit or [m for _, m in moves] != emit:
+        raise AssertionError(f"the weights must move at every second "
+                             f"micro-step only: {moves}")
+    if not restored or not all(restored.values()):
+        raise AssertionError(f"resume restored another state: {restored}")
+    if not np.isfinite(losses).all() or len(wers) != FIT_EPOCHS + 1:
+        raise AssertionError("a recognition loss is not finite, or an "
+                             "epoch was not validated")
+
+    # the native beam search against the plain one on one utterance
+    example = min(dev_set, key=lambda e: e["emg"].shape[0])
+    lp = resumed.predict_logits(example)
+    lm = resumed._get_lm()
+    cfg = resumed.train_cfg
+    beams = {}
+    for name, fn in (("native", beam_ctc_decode),
+                     ("plain", beam_ctc_decode_plain)):
+        t0 = time.perf_counter()
+        ids = fn(lp, tt.chars, resumed.blank_id, beam_width=REC_BEAM_CHECK,
+                 lm=lm, alpha=cfg.lm_alpha, beta=cfg.lm_beta)
+        beams[name] = (ids, time.perf_counter() - t0)
+    same = beams["native"][0] == beams["plain"][0]
+    log(f"[rec] beam width {REC_BEAM_CHECK} with the bigram LM over "
+        f"{lp.shape[0]} frames: native {beams['native'][1] * 1e3:.1f} ms, "
+        f"plain {beams['plain'][1] * 1e3:.1f} ms, "
+        f"{tt.int_to_text(beams['native'][0])!r}; identical ids: {same}")
+    if not same:
+        raise AssertionError("the native beam search disagrees with the "
+                             "plain one")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # an f32 micro-step with the kernels, then with the plain attention
+    batch_ids = id_batches[0]
+    runs = {}
+    for mode in ("kernels", "plain"):
+        tr = trainer(SEED, compute_dtype="float32")
+        batch = tr._pack([train_set[i] for i in batch_ids])
+        with contextlib.ExitStack() as stack:
+            if mode == "plain":
+                stack.enter_context(swapped(transformer, "rel_attention",
+                                            rel_attention_plain))
+            loss = tr.train_step(batch, 1e-4)
+        params = dict(tr.model.named_parameters())
+        runs[mode] = (loss.item(), {n: params[n].grad.detach().clone()
+                                    for n in COMPARED_GRADS
+                                    if n in params})
+        del tr, params
+        torch.cuda.empty_cache()
+    (k_loss, k_grads), (p_loss, p_grads) = runs["kernels"], runs["plain"]
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    log(f"[rec] f32 micro-step, kernels vs plain: loss {k_loss:.6f} vs "
+        f"{p_loss:.6f}, rel err {rel:.3g} (tolerance {STEP_LOSS_RTOL})")
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError("the f32 recognition micro-step with the "
+                             "kernels disagrees with the plain version")
+    for name, ref in p_grads.items():
+        err = (k_grads[name] - ref).abs().max().item()
+        tol = STEP_GRAD_RTOL * ref.abs().max().item()
+        log(f"[rec]   grad {name}: max_abs_err {err:.3g} (tolerance "
+            f"{tol:.3g} = {STEP_GRAD_RTOL} x max|ref|) "
+            f"{'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            raise AssertionError(f"gradient of {name} disagrees")
+
+    # the trained model.pt, exported and served: one /v1/recognize
+    bundle_dir = export.main(["--models", os.path.join(out_dir, "model.pt"),
+                              "--output_directory",
+                              os.path.join(work, "serving"),
+                              "--recognition"])
+    server = ServingServer(recognition=export.ServingBundle.load(
+        bundle_dir, device="cuda")).start()
+    try:
+        reset_launches()
+        reply = post(server.port, "/v1/recognize",
+                     {"emg": example["emg"].tolist(),
+                      "raw_emg": example["raw_emg"].tolist()})
+        serve_launches = read_launches()
+    finally:
+        server.stop()
+    out = np.asarray(reply["log_probs"], np.float32)
+    ok = (out.shape == lp.shape and np.isfinite(out).all()
+          and isinstance(reply["text"], str)
+          and serve_launches["rel_attention_fwd"] == layers
+          and sum(serve_launches.values()) == layers)
+    log(f"[rec] /v1/recognize from the trained model.pt: log-probs "
+        f"{out.shape}, text {reply['text']!r}, launches {serve_launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the recognize request failed")
+    logging.getLogger().removeHandler(handler)
+    return fit_launches, serve_launches
+
+
 def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs):
-    """Phase 6, kernels: ms per launch at the main path's shapes, against
+    """Phase 7, kernels: ms per launch at the main path's shapes, against
     the bound and the plain version. Returns the kernels JSON entries."""
     import torch
     from silent_speech_tpu_torch.ops.dtw import (
@@ -1181,6 +1521,38 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs):
         f"m=100 dropout 0.2, by stage: "
         + ", ".join(f"{n} {stages_ms[n]:.4f} ms" for n in STAGES)
         + f" (sum {sum(stages_ms.values()):.4f} ms)")
+    # the recognition micro-step's shape
+    rb, rt = REC_BT
+    rq, rk, rv, re_ = attention_inputs(rb, rt, torch.bfloat16, seed=10)
+    rdout = torch.randn(rq.shape, device="cuda", generator=g).to(rq.dtype)
+    rxs = [x.detach().requires_grad_() for x in (rq, rk, rv, re_)]
+    rout = rel_attention_plain(*rxs, 100, None, 3, drop)
+    rec = {}
+    for name, ms, plain_ms, (bound_ms, bound_by) in (
+            ("rel_attention_fwd",
+             cuda_time_ms(lambda: rel_attention(rq, rk, rv, re_, 100, None,
+                                                3, drop), iters=20),
+             cuda_time_ms(lambda: rel_attention_plain(
+                 rq, rk, rv, re_, 100, None, 3, drop), iters=5),
+             attention_bound(rb, 8, rt, 96, 100, rt, "bfloat16")),
+            ("rel_attention_bwd",
+             cuda_time_ms(lambda: rel_attention_bwd(
+                 rq, rk, rv, re_, rdout, 100, None, 3, drop), iters=10),
+             cuda_time_ms(lambda: torch.autograd.grad(
+                 rout, rxs, rdout, retain_graph=True), iters=3),
+             attention_bwd_bound(rb, 8, rt, 96, 100, "bfloat16"))):
+        rec[name] = {"shape": f"B={rb} H=8 T={rt} d_h=96 m=100 bf16 dropout "
+                              f"0.2",
+                     "max_abs_err": errs[(f"{name}_recognition",
+                                          "bfloat16")],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        log(f"[time] {card} | {name} bf16 B={rb} H=8 T={rt} d_h=96 m=100 "
+            f"dropout 0.2 (recognition micro-step): kernel {ms:.4f} "
+            f"ms/launch, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}), {bound_ms / ms:.2%} of bound")
+    del rq, rk, rv, re_, rdout, rxs, rout
+
     q32, k32, v32, e32, dout32 = (x.float() for x in (q, k, v, e, dout))
     fwd_f32_ms = cuda_time_ms(
         lambda: rel_attention(q32, k32, v32, e32, 100, None, 3, drop),
@@ -1289,7 +1661,8 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs):
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
          "library_ms": None, "sdpa_yardstick_ms": sdpa_ms,
          "serve_ms_T1024": serve_ms,
-         "serve_device_ms_T1024": serve_dev_ms},
+         "serve_device_ms_T1024": serve_dev_ms,
+         "recognition": rec["rel_attention_fwd"]},
         {"name": "rel_attention_bwd", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/rel_attention_bwd_wmma.cu",
          "source_f32": "silent_speech_tpu_torch/csrc/rel_attention_bwd.cu",
@@ -1299,7 +1672,8 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs):
          "max_abs_err_f32": errs[("rel_attention_bwd", "float32")],
          "ms": bwd_ms, "stages_ms": stages_ms, "ms_f32": bwd_f32_ms,
          "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
-         "bound_by": bwd_bound[1], "library_ms": None},
+         "bound_by": bwd_bound[1], "library_ms": None,
+         "recognition": rec["rel_attention_bwd"]},
         {"name": "dtw_align", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/dtw.cu",
          "replaces": "silent_speech_tpu/ops/pallas/dtw_kernel.py:209",
@@ -1382,10 +1756,20 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 6. kernel timings ----------------------------------------------------
+    # 6. recognition -------------------------------------------------------
+    work = tempfile.mkdtemp(prefix="chip_smoke_rec_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        rec_launches, rec_serve_launches = recognition_run(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # 7. kernel timings ----------------------------------------------------
     kernels = time_kernels(
         card, {"serve": serve_launches, "train": train_launches,
-               "fit": fit_launches, "aligned_prediction": aligned_launches},
+               "fit": fit_launches, "aligned_prediction": aligned_launches,
+               "recognition_fit": rec_launches,
+               "recognition_serve": rec_serve_launches},
         errs, dtw_inputs, aligned_inputs)
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the card was "
         f"found")

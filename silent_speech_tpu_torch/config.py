@@ -1,11 +1,11 @@
 """Typed configuration: the fields of the JAX package's configuration
-(``silent_speech_tpu/config.py``) that the eval forward, the transduction
-trainer and its dataset need, with the same names and defaults."""
+(``silent_speech_tpu/config.py``) that the eval forward, the two trainers
+and their dataset need, with the same names and defaults."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 
 @dataclass
@@ -75,3 +75,29 @@ class TransductionTrainConfig:
     # batch capacity in raw-recording EMG samples
     # (reference ``transduction_model.py:166``)
     max_batch_len: int = 256000
+
+
+@dataclass
+class RecognitionTrainConfig:
+    """EMG→text CTC training (reference ``recognition_model.py:20-28``)."""
+
+    batch_size: int = 32   # unused, as in the reference
+    epochs: int = 200
+    learning_rate: float = 3e-4
+    learning_rate_warmup: int = 1000
+    learning_rate_patience: int = 5
+    start_training_from: Optional[str] = None
+    l2: float = 0.0
+    moment_dtype: str = "bfloat16"  # see TransductionTrainConfig
+    output_directory: str = "output"
+    evaluate_saved: Optional[str] = None
+    debug: bool = False
+    max_batch_len: int = 128000   # ``recognition_model.py:62``
+    grad_accum: int = 2           # ``recognition_model.py:105-107``
+    lr_milestones: Sequence[int] = (125, 150, 175)
+    lr_gamma: float = 0.5
+    # beam decode (reference ``recognition_model.py:34-35``)
+    lm_path: str = "lm.binary"
+    lm_alpha: float = 1.5
+    lm_beta: float = 1.85
+    beam_width: int = 100

@@ -18,12 +18,14 @@ over that budget, and the trainer then packs on the host. On the CPU there
 is no budget. ``SSTPU_CACHE_BUDGET_BYTES`` overrides the budget on any
 device.
 
-The JAX corpus also carries text and session ids; the port's step reads
-neither, so only the text lengths stay, on the host, for the caps' guard.
+The text of each utterance (its character ids) is on the card too, for
+the recognition trainer's CTC loss. The JAX corpus also carries session
+ids, which no step of the port reads.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Union
@@ -81,10 +83,13 @@ class CorpusArrays(NamedTuple):
     raw_frames: torch.Tensor   # (Σ T_u + 1, 64) frame-grouped raw EMG
     tgt_flat: torch.Tensor     # (Σ Ttgt_u + 1, 80) mel targets
     phon_flat: torch.Tensor    # (Σ Ttgt_u + 1,) target-timeline phonemes
+    text_flat: torch.Tensor    # (Σ chars_u + 1,) character ids
     feat_len: torch.Tensor     # (E,) feature frames per example
     raw_off: torch.Tensor      # (E,) frame offsets into raw_frames
     tgt_off: torch.Tensor      # (E,) offsets into tgt_flat / phon_flat
     tgt_len: torch.Tensor      # (E,)
+    text_off: torch.Tensor     # (E,) offsets into text_flat
+    text_len: torch.Tensor     # (E,)
     silent: torch.Tensor       # (E,) bool
 
 
@@ -105,7 +110,7 @@ class DeviceCorpus:
         """Flatten example dicts (the ``EMGDataset.__getitem__`` schema) on
         the host, count their bytes against the budget, then upload once."""
         device = resolve_device(device)
-        raw_parts, tgt_parts, phon_parts = [], [], []
+        raw_parts, tgt_parts, phon_parts, text_parts = [], [], [], []
         feat_len, tgt_len, text_len, silent = [], [], [], []
         for e in examples:
             raw = np.asarray(e["raw_emg"], np.float32)
@@ -118,6 +123,7 @@ class DeviceCorpus:
             raw_parts.append(raw.reshape(-1, 8 * raw.shape[1]))
             tgt_parts.append(tgt)
             phon_parts.append(phon)
+            text_parts.append(np.asarray(e["text_int"], np.int32))
             feat_len.append(raw.shape[0] // 8)
             tgt_len.append(tgt.shape[0])
             text_len.append(len(e["text_int"]))
@@ -135,10 +141,13 @@ class DeviceCorpus:
             raw_frames=with_pad_row(raw_parts),
             tgt_flat=with_pad_row(tgt_parts),
             phon_flat=with_pad_row(phon_parts, np.int32),
+            text_flat=with_pad_row(text_parts, np.int32),
             feat_len=np.asarray(feat_len, np.int32),
             raw_off=offsets(feat_len),
             tgt_off=offsets(tgt_len),
             tgt_len=np.asarray(tgt_len, np.int32),
+            text_off=offsets(text_len),
+            text_len=np.asarray(text_len, np.int32),
             silent=np.asarray(silent, bool))
         breakdown = {f: getattr(host, f).nbytes for f in host._fields}
         total = sum(breakdown.values())
@@ -152,10 +161,30 @@ class DeviceCorpus:
             silent_mask=host.silent,
             feat_len_host=host.feat_len,
             tgt_len_host=host.tgt_len,
-            text_len_host=np.asarray(text_len, np.int32))
+            text_len_host=host.text_len)
 
     def order_silent_first(self, ids: Sequence[int]) -> List[int]:
         return sorted(ids, key=lambda i: not bool(self.silent_mask[i]))
+
+
+def build_training_corpus(dataset, data_cfg, device: torch.device
+                          ) -> Optional[DeviceCorpus]:
+    """``dataset`` as a ``DeviceCorpus``, or None when the corpus is off
+    (``data_cfg.device_cache`` and ``fixed_shapes`` both needed) or over
+    its budget; a trainer then packs on the host."""
+    if not (data_cfg.device_cache and data_cfg.fixed_shapes):
+        return None
+    logging.info("building the device corpus (%d examples, host "
+                 "featurization)", len(dataset))
+    try:
+        return DeviceCorpus.build(
+            [dataset[i] for i in range(len(dataset))], device,
+            hbm_fraction=data_cfg.cache_hbm_fraction)
+    except HBMBudgetError as e:
+        logging.warning("%s", e)
+        logging.warning("device corpus over budget - using the host "
+                        "packing path (per-batch upload)")
+        return None
 
 
 def _segment_owner(dest_starts: torch.Tensor, total: torch.Tensor,
@@ -169,16 +198,22 @@ def _segment_owner(dest_starts: torch.Tensor, total: torch.Tensor,
 
 def assemble_batch(arrays: CorpusArrays, utt_ids: torch.Tensor,
                    utt_valid: torch.Tensor, *, n_chunks: int,
-                   seq_len: int = 200, t_cap: int = 1024) -> DeviceBatch:
+                   seq_len: int = 200, t_cap: int = 1024,
+                   text_cap: int = 128, with_audio: bool = True
+                   ) -> DeviceBatch:
     """The packed batch of the utterances ``utt_ids`` ((U,) int64, padded
     entries arbitrary; ``utt_valid`` the (U,) bool mask), gathered on their
     device, with the shapes of ``pack_batch(..., fixed_chunks=n_chunks,
-    fixed_utts=U, fixed_t=t_cap)``."""
+    fixed_utts=U, fixed_t=t_cap, with_audio=with_audio)`` and its text
+    padded to ``text_cap`` characters. Without audio, as in the packer, the
+    targets are left out and a voiced utterance's target length is 0."""
     zero = torch.zeros((), dtype=torch.int32, device=utt_ids.device)
     feat_len = torch.where(utt_valid, arrays.feat_len[utt_ids], zero)
     tgt_len = torch.where(utt_valid, arrays.tgt_len[utt_ids], zero)
+    text_len = torch.where(utt_valid, arrays.text_len[utt_ids], zero)
     raw_off = arrays.raw_off[utt_ids].long()
     tgt_off = arrays.tgt_off[utt_ids].long()
+    text_off = arrays.text_off[utt_ids].long()
     silent = utt_valid & arrays.silent[utt_ids]
 
     # where each utterance starts in the packed rows (combine_fixed_length)
@@ -198,14 +233,27 @@ def assemble_batch(arrays: CorpusArrays, utt_ids: torch.Tensor,
     tgt_src = torch.where(t_range[None, :] < tgt_len[:, None],
                           tgt_off[:, None] + t_range[None, :], pad_tgt)
     u = utt_ids.shape[0]
-    audio = arrays.tgt_flat.index_select(0, tgt_src.reshape(-1)).reshape(
-        u, t_cap, -1)
+    audio = None
+    if with_audio:
+        audio = arrays.tgt_flat.index_select(
+            0, tgt_src.reshape(-1)).reshape(u, t_cap, -1)
+    else:
+        tgt_len = torch.where(silent, tgt_len, zero)
     phonemes = arrays.phon_flat.index_select(
         0, tgt_src.reshape(-1)).reshape(u, t_cap)
     gather = torch.clamp(feat_starts[:, None] + t_range[None, :],
                          max=n_rows - 1)
     gather = torch.where(utt_valid[:, None], gather, 0).to(torch.int32)
+
+    c_range = torch.arange(text_cap, device=utt_ids.device)
+    text_mask = c_range[None, :] < text_len[:, None]
+    text_src = torch.where(text_mask, text_off[:, None] + c_range[None, :],
+                           arrays.text_flat.shape[0] - 1)
+    text = arrays.text_flat.index_select(0, text_src.reshape(-1)).reshape(
+        u, text_cap)
+    text = torch.where(text_mask, text, torch.full_like(text, -1))
     return DeviceBatch(
         raw_emg=raw.reshape(n_chunks, seq_len * 8, -1),
         utt_gather_idx=gather, utt_len=feat_len, target_len=tgt_len,
-        phonemes=phonemes, silent=silent, audio_features=audio)
+        phonemes=phonemes, silent=silent, audio_features=audio,
+        text_int=text, text_len=text_len)

@@ -226,8 +226,9 @@ def pack_batch(examples: Sequence[dict], seq_len: int = 200,
 
 
 class DeviceBatch(NamedTuple):
-    """The tensors of a ``PackedBatch`` that the step reads, on the
-    device."""
+    """The tensors of a ``PackedBatch`` that the steps read, on the
+    device. ``audio_features`` is None in a batch packed without audio
+    (the recognition trainer's)."""
 
     raw_emg: torch.Tensor
     utt_gather_idx: torch.Tensor
@@ -235,9 +236,13 @@ class DeviceBatch(NamedTuple):
     target_len: torch.Tensor
     phonemes: torch.Tensor
     silent: torch.Tensor
-    audio_features: torch.Tensor
+    audio_features: Optional[torch.Tensor]
+    text_int: torch.Tensor
+    text_len: torch.Tensor
 
 
 def upload(batch: PackedBatch, device: torch.device) -> DeviceBatch:
-    return DeviceBatch(*(torch.from_numpy(np.ascontiguousarray(
-        getattr(batch, name))).to(device) for name in DeviceBatch._fields))
+    return DeviceBatch(*(
+        None if getattr(batch, name) is None else torch.from_numpy(
+            np.ascontiguousarray(getattr(batch, name))).to(device)
+        for name in DeviceBatch._fields))

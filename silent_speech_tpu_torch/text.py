@@ -2,17 +2,18 @@
 ``data_utils.py:243-258``); the CTC blank is the index after the last
 symbol.
 
-Own copy of ``TextTransform`` and what it calls in the JAX package's
-``silent_speech_tpu/text.py``: unidecode-style ASCII folding (NFKD plus a
-table of characters it cannot decompose), jiwer's punctuation removal and
-lowercasing over ``a-z0-9<space>``.
+Own copy of ``TextTransform``, ``wer`` and what they call in the JAX
+package's ``silent_speech_tpu/text.py``: unidecode-style ASCII folding
+(NFKD plus a table of characters it cannot decompose), jiwer's punctuation
+removal and lowercasing over ``a-z0-9<space>``, and jiwer's corpus word
+error rate.
 """
 
 from __future__ import annotations
 
 import string
 import unicodedata
-from typing import Iterable, List
+from typing import Iterable, List, Sequence, Union
 
 CHARS = string.ascii_lowercase + string.digits + " "
 
@@ -68,3 +69,38 @@ class TextTransform:
 
     def int_to_text(self, ints: Iterable[int]) -> str:
         return "".join(self.chars[i] for i in ints)
+
+
+def edit_distance(ref: Sequence, hyp: Sequence) -> int:
+    """Levenshtein distance between two token sequences."""
+    n, m = len(ref), len(hyp)
+    if n == 0:
+        return m
+    if m == 0:
+        return n
+    prev = list(range(m + 1))
+    for i in range(1, n + 1):
+        cur = [i] + [0] * m
+        ri = ref[i - 1]
+        for j in range(1, m + 1):
+            sub = prev[j - 1] + (ri != hyp[j - 1])
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, sub)
+        prev = cur
+    return prev[m]
+
+
+def wer(references: Union[str, Sequence[str]],
+        hypotheses: Union[str, Sequence[str]]) -> float:
+    """Corpus WER: Σ word edit distances / Σ reference words, as
+    ``jiwer.wer`` on lists of sentences (reference
+    ``recognition_model.py:58``)."""
+    refs = [references] if isinstance(references, str) else list(references)
+    hyps = [hypotheses] if isinstance(hypotheses, str) else list(hypotheses)
+    if len(refs) != len(hyps):
+        raise ValueError(f"{len(refs)} references but {len(hyps)} "
+                         f"hypotheses")
+    total_words = sum(len(r.split()) for r in refs)
+    if total_words == 0:
+        return 0.0
+    return sum(edit_distance(r.split(), h.split())
+               for r, h in zip(refs, hyps)) / total_words

@@ -4,8 +4,10 @@ reference-layout ``model.pt``.
 Counterpart of ``silent_speech_tpu/train/checkpoint.py``, which saves with
 orbax; a checkpoint resumes port to port only. The saved state is the
 model's state dict (weights and BatchNorm statistics), the AdamW moments
-and count, the step generator's state and a dict of host-side state (epoch,
-global step, plateau schedule). The JAX step draws its randomness by
+and count, the gradient accumulator and its micro-step (so a resume that
+falls between two micro-steps of an accumulation group is exact), the step
+generator's state and a dict of host-side state (epoch, global step,
+plateau or milestone schedule). The JAX step draws its randomness by
 ``fold_in(rng, step)`` and needs no saved state; the port's
 ``torch.Generator`` draws in sequence, so without its state a resumed run
 would draw other shifts and dropout masks.
@@ -44,6 +46,8 @@ def save_checkpoint(directory: str, trainer,
              "mu": [m.detach().cpu() for m in opt.mu],
              "nu": [v.detach().cpu() for v in opt.nu],
              "count": opt.count,
+             "acc": [a.detach().cpu() for a in opt.acc],
+             "mini_step": opt.mini_step,
              "generator": trainer.generator.get_state(),
              "extra": dict(extra or {})}
     path = os.path.join(directory, CHECKPOINT)
@@ -66,6 +70,15 @@ def restore_checkpoint(directory: str, trainer) -> dict:
     for dst, src in zip(opt.mu + opt.nu, state["mu"] + state["nu"]):
         dst.copy_(src)
     opt.count = int(state["count"])
+    # checkpoints written before the port accumulated gradients have no
+    # accumulator: an empty one
+    acc = state.get("acc", [])
+    if len(acc) != len(opt.acc):
+        raise ValueError("the checkpoint's gradient accumulation does not "
+                         "match the optimizer's")
+    for dst, src in zip(opt.acc, acc):
+        dst.copy_(src)
+    opt.mini_step = int(state.get("mini_step", 0))
     trainer.generator.set_state(state["generator"])
     return state["extra"]
 

@@ -1,8 +1,10 @@
-"""The transduction (EMG→mel) loss over packed batches.
+"""The transduction (EMG→mel) and recognition (CTC) losses over packed
+batches.
 
-Counterpart of ``transduction_loss`` and ``pairwise_l2`` in the JAX
-package (``silent_speech_tpu/train/losses.py``; reference
-``transduction_model.py:98-157``):
+Counterpart of ``transduction_loss``, ``pairwise_l2`` and ``ctc_loss`` in
+the JAX package (``silent_speech_tpu/train/losses.py``; reference
+``transduction_model.py:98-157``, ``recognition_model.py:96-101``).
+Transduction:
 
 - **silent** utterances: the pairwise L2 distances between the target
   frames and the predicted frames, minus ``w·log p(phone)`` of the target's
@@ -13,6 +15,9 @@ package (``silent_speech_tpu/train/losses.py``; reference
 - **voiced** utterances: the framewise ‖y − ŷ + 1e−6‖₂ plus ``w·`` the
   summed phoneme cross-entropy.
 - batch loss = Σ utterance losses / Σ target lengths.
+
+Recognition: CTC of each utterance's text under its frames' log-probs,
+divided by the text's length, averaged over the real utterances.
 
 ``matmul_dtype`` sets the dtype of the interior (the gathered views, the
 log-softmax, the distances and the stored cost matrix); every sum over
@@ -55,6 +60,17 @@ def pairwise_l2(a: torch.Tensor, b: torch.Tensor,
     return torch.sqrt(torch.clamp(a2 + b2 - 2.0 * ab, min=1e-12))
 
 
+def gather_utterances(x: torch.Tensor, gather_idx: torch.Tensor
+                      ) -> torch.Tensor:
+    """(N, L, D) packed rows → (U, T, D) by the (U, T) row indices.
+    index_select's backward is an index_add, where advanced indexing's
+    sorts the indices first."""
+    flat = x.reshape(-1, x.shape[-1])
+    idx = gather_idx.long()
+    return flat.index_select(0, idx.reshape(-1)).reshape(
+        *idx.shape, x.shape[-1])
+
+
 def transduction_loss(pred: torch.Tensor, phoneme_pred: torch.Tensor, batch,
                       phoneme_loss_weight: float = 0.5,
                       phoneme_eval: bool = False,
@@ -75,17 +91,9 @@ def transduction_loss(pred: torch.Tensor, phoneme_pred: torch.Tensor, batch,
     """
     cdt = torch.float32 if matmul_dtype is None else matmul_dtype
     d_out = pred.shape[-1]
-    idx = batch.utt_gather_idx.long()
-
-    def per_utterance(x):
-        # (N, L, D) packed rows → (U, T, D); index_select's backward is an
-        # index_add, where advanced indexing's sorts the indices first
-        flat = x.reshape(-1, x.shape[-1]).to(cdt)
-        return flat.index_select(0, idx.reshape(-1)).reshape(
-            *idx.shape, x.shape[-1])
-
-    utt_pred = per_utterance(pred)                            # (U, T, 80)
-    utt_phone = per_utterance(phoneme_pred)                   # (U, T, 48)
+    idx = batch.utt_gather_idx
+    utt_pred = gather_utterances(pred.to(cdt), idx)           # (U, T, 80)
+    utt_phone = gather_utterances(phoneme_pred.to(cdt), idx)  # (U, T, 48)
     y = batch.audio_features.to(cdt)
     y_phone = batch.phonemes.long()
     utt_len, tgt_len, silent = batch.utt_len, batch.target_len, batch.silent
@@ -161,3 +169,31 @@ def transduction_loss(pred: torch.Tensor, phoneme_pred: torch.Tensor, batch,
     return TransductionLossOut(loss=loss, correct_phones=correct,
                                total_length=total_length,
                                confusion=confusion, alignment=alignment)
+
+
+def ctc_loss(log_probs: torch.Tensor, batch, blank_id: int) -> torch.Tensor:
+    """The recognition loss of a packed batch, a float32 scalar.
+
+    ``log_probs`` (N, L, K) are the packed frames' log-probabilities;
+    ``batch`` carries ``utt_gather_idx``, ``utt_len``, ``text_int`` (U, S)
+    padded with −1 and ``text_len``. As in the JAX package, each
+    utterance's frames are gathered, log-softmaxed again in float32 (as
+    ``optax.ctc_loss`` does), and its CTC negative log-likelihood is
+    divided by ``max(text_len, 1)``; the mean runs over the utterances
+    with text (padding rows have none).
+
+    An utterance whose text cannot be aligned to its frames (more labels,
+    with the blanks repeats need, than frames) gives ``inf`` here, where
+    ``optax.ctc_loss`` gives a large finite value (its log-epsilon clamp).
+    """
+    utt = gather_utterances(log_probs.float(), batch.utt_gather_idx)
+    utt = torch.log_softmax(utt, dim=-1)                      # (U, T, K)
+    text_len = batch.text_len.long()
+    # padding rows take one frame, so that every row is well defined; the
+    # mask below drops them
+    nll = F.ctc_loss(utt.transpose(0, 1), batch.text_int.long().clamp_min(0),
+                     batch.utt_len.long().clamp_min(1), text_len,
+                     blank=blank_id, reduction="none")
+    real = text_len > 0
+    per_utt = torch.where(real, nll / text_len.clamp_min(1), 0.0)
+    return per_utt.sum() / real.sum().clamp_min(1)

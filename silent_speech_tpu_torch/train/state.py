@@ -1,15 +1,26 @@
-"""AdamW with reduced-precision moments, the learning rate set per step.
+"""AdamW with reduced-precision moments, the learning rate set per step,
+and gradient accumulation.
 
-Counterpart of ``fused_adamw`` in the JAX package
-(``silent_speech_tpu/train/state.py``): the update math is float32, the
-moments are stored in ``moment_dtype`` (bfloat16 by default, which cuts
-the optimizer's memory traffic), and the arithmetic follows optax:
-``(1 − b)`` is formed in float64 before it meets a float32 tensor, the
-bias corrections ``1 − b**count`` are float32, and the update is
-``p − lr·(m̂/(√v̂ + ε) + wd·p)``. With ``moment_dtype=torch.float32`` it is
-``optax.adamw``. The reference trains with torch's AdamW defaults
-(β = (0.9, 0.999), ε = 1e-8, decoupled weight decay,
-``transduction_model.py:178``). The parameters are updated in place.
+Counterpart of ``make_adamw`` in the JAX package
+(``silent_speech_tpu/train/state.py``), the optimizer of its trainers: the
+update math is float32, the moments are stored in ``moment_dtype``
+(bfloat16 by default, ``fused_adamw`` there, which cuts the optimizer's
+memory traffic), and the arithmetic is that of optax under
+``inject_hyperparams``, which holds β, ε and the decay as float32 arrays:
+``1 − b`` and the bias corrections ``1 − b**count`` are float32, and the
+update is ``p − lr·(m̂/(√v̂ + ε) + wd·p)``. With
+``moment_dtype=torch.float32`` it is ``optax.adamw`` so wrapped. The
+reference trains with torch's AdamW defaults (β = (0.9, 0.999), ε = 1e-8,
+decoupled weight decay, ``transduction_model.py:178``). The parameters are updated in place.
+
+``grad_accum=k > 1`` is ``optax.MultiSteps(every_k_schedule=k)`` (0.2.6)
+around it, as the recognition trainer uses with k = 2
+(``recognition_model.py:105-107``): each micro-step folds its gradient into
+a float32 running mean ``acc + (g − acc)/(n + 1)`` (n the micro-step within
+the group) kept on the parameters' device; the k-th updates the weights
+from the mean at that micro-step's learning rate, advances the Adam count
+and zeroes the mean; the others leave the weights, moments and count as
+they are.
 """
 
 from __future__ import annotations
@@ -24,7 +35,8 @@ class FusedAdamW:
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0,
-                 moment_dtype: torch.dtype = torch.bfloat16):
+                 moment_dtype: torch.dtype = torch.bfloat16,
+                 grad_accum: int = 1):
         self.params = list(params)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
@@ -34,19 +46,41 @@ class FusedAdamW:
         self.nu = [torch.zeros_like(p, dtype=moment_dtype)
                    for p in self.params]
         self.count = 0
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        self.grad_accum = grad_accum
+        self.mini_step = 0   # micro-steps folded into ``acc`` so far
+        self.acc = [torch.zeros_like(p, dtype=torch.float32)
+                    for p in self.params] if grad_accum > 1 else []
+
+    def _grads(self):
+        return [(p.grad if p.grad is not None
+                 else torch.zeros_like(p)).float() for p in self.params]
 
     @torch.no_grad()
-    def step(self, lr: float) -> None:
-        """One update with learning rate ``lr`` from each parameter's
-        ``.grad``; a parameter without a gradient takes a zero one."""
+    def step(self, lr: float) -> bool:
+        """One micro-step with learning rate ``lr`` from each parameter's
+        ``.grad`` (a parameter without one takes a zero gradient). Returns
+        whether the weights were updated: always without accumulation,
+        on every ``grad_accum``-th micro-step with it."""
+        if self.grad_accum > 1:
+            # optax's Welford mean: acc + (g − acc)/(n + 1), in place
+            delta = torch._foreach_sub(self._grads(), self.acc)
+            torch._foreach_div_(delta, self.mini_step + 1)
+            torch._foreach_add_(self.acc, delta)
+            self.mini_step = (self.mini_step + 1) % self.grad_accum
+            if self.mini_step:
+                return False
+            grads = self.acc
+        else:
+            grads = self._grads()
         self.count += 1
         c = np.float32(self.count)
         bc1 = float(np.float32(1) - np.float32(self.b1) ** c)
         bc2 = float(np.float32(1) - np.float32(self.b2) ** c)
-        one_minus_b1, one_minus_b2 = 1.0 - self.b1, 1.0 - self.b2
-        for p, m, v in zip(self.params, self.mu, self.nu):
-            g32 = (p.grad if p.grad is not None
-                   else torch.zeros_like(p)).float()
+        one_minus_b1 = float(np.float32(1) - np.float32(self.b1))
+        one_minus_b2 = float(np.float32(1) - np.float32(self.b2))
+        for p, g32, m, v in zip(self.params, grads, self.mu, self.nu):
             m32 = self.b1 * m.float() + one_minus_b1 * g32
             v32 = self.b2 * v.float() + one_minus_b2 * (g32 * g32)
             upd = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps) \
@@ -54,3 +88,6 @@ class FusedAdamW:
             p.add_((-lr * upd).to(p.dtype))
             m.copy_(m32)
             v.copy_(v32)
+        if self.acc:
+            torch._foreach_zero_(self.acc)
+        return True

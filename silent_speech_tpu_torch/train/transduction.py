@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ..config import DataConfig, ModelConfig, TransductionTrainConfig
-from ..data.device_cache import DeviceCorpus, HBMBudgetError, assemble_batch
+from ..data.device_cache import (DeviceCorpus, assemble_batch,
+                                 build_training_corpus)
 from ..data.packing import (SILENT_BUCKET, DeviceBatch, PackedBatch,
                             pack_batch, upload)
 from ..data.sampler import SizeAwareSampler
@@ -204,20 +205,7 @@ class TransductionTrainer:
     def build_corpus(self, dataset) -> Optional[DeviceCorpus]:
         """``dataset`` as a ``DeviceCorpus``, or None when the corpus is off
         or over its budget (then training packs on the host)."""
-        d = self.data_cfg
-        if not (d.device_cache and d.fixed_shapes):
-            return None
-        logging.info("building the device corpus (%d examples, host "
-                     "featurization)", len(dataset))
-        try:
-            return DeviceCorpus.build(
-                [dataset[i] for i in range(len(dataset))], self.device,
-                hbm_fraction=d.cache_hbm_fraction)
-        except HBMBudgetError as e:
-            logging.warning("%s", e)
-            logging.warning("device corpus over budget - using the host "
-                            "packing path (per-batch upload)")
-            return None
+        return build_training_corpus(dataset, self.data_cfg, self.device)
 
     def fit(self, trainset, devset, epochs: Optional[int] = None,
             seed: int = 0, resume: bool = False,

@@ -21,6 +21,7 @@ evaluation of the JAX CLI are not ported yet.
 from __future__ import annotations
 
 import argparse
+import functools
 import logging
 from typing import Optional, Sequence
 
@@ -40,20 +41,25 @@ def _list(value: str):
     return [v for v in value.split(",") if v]
 
 
+def add_flag(ap: argparse.ArgumentParser, name: str, default, help_: str,
+             type_=None) -> None:
+    """``--name`` with the JAX CLI's forms: a boolean also takes
+    ``--noname`` and ``--name=false``."""
+    if type_ is _bool:
+        ap.add_argument(f"--{name}", nargs="?", const=True,
+                        default=default, type=_bool, help=help_)
+        ap.add_argument(f"--no{name}", dest=name, action="store_false",
+                        help=argparse.SUPPRESS)
+    else:
+        ap.add_argument(f"--{name}", default=default,
+                        type=type_ or type(default), help=help_)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Train the EMG→mel "
                                  "transduction model (PyTorch port).")
     m, d, t = ModelConfig(), DataConfig(), TransductionTrainConfig()
-
-    def flag(name, default, help_, type_=None):
-        if type_ is _bool:
-            ap.add_argument(f"--{name}", nargs="?", const=True,
-                            default=default, type=_bool, help=help_)
-            ap.add_argument(f"--no{name}", dest=name, action="store_false",
-                            help=argparse.SUPPRESS)
-        else:
-            ap.add_argument(f"--{name}", default=default,
-                            type=type_ or type(default), help=help_)
+    flag = functools.partial(add_flag, ap)
 
     # architecture.py:10-12
     flag("model_size", m.model_size, "number of hidden dimensions")

@@ -1,11 +1,10 @@
 """WAV reading and writing, and ``read_audio``.
 
-Own copy of the WAV half of the JAX package's
-``silent_speech_tpu/utils/audio_io.py``: PCM16/32, 8-bit and float WAV in,
-PCM16 out (``sf.write``'s default subtype, which the reference's eval wavs
-use). ``read_audio`` reads a sibling ``.wav`` when the ``.flac`` it is
-given does not exist. The port has no FLAC decoder yet: a ``.flac`` with
-no sibling ``.wav`` raises ``NotImplementedError``.
+Own copy of the JAX package's ``silent_speech_tpu/utils/audio_io.py``:
+PCM16/32, 8-bit and float WAV in, PCM16 out (``sf.write``'s default
+subtype, which the reference's eval wavs use), and FLAC in through the
+port's own decoder (``utils/flac.py``). ``read_audio`` reads a sibling
+``.wav`` or ``.flac`` when the path it is given does not exist.
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ import wave
 from typing import Tuple
 
 import numpy as np
+
+from .flac import read_flac
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -49,8 +50,8 @@ def write_wav(path: str, audio: np.ndarray, sample_rate: int) -> None:
 
 
 def read_audio(path: str, mono: bool = True) -> Tuple[np.ndarray, int]:
-    """Read a wav; for a path that does not exist, its sibling ``.wav`` or
-    ``.flac``. With ``mono``, the first channel of a multi-channel file
+    """Read a wav or flac; for a path that does not exist, its sibling
+    ``.wav`` or ``.flac``. With ``mono``, the first channel of a multi-channel file
     (reference ``data_utils.py:67-68``)."""
     base, ext = os.path.splitext(path)
     if not os.path.exists(path):
@@ -61,13 +62,11 @@ def read_audio(path: str, mono: bool = True) -> Tuple[np.ndarray, int]:
                 break
     ext = ext.lower()
     if ext == ".flac":
-        raise NotImplementedError(
-            f"{path}: the PyTorch port reads WAV only; its FLAC decoder "
-            f"(the counterpart of silent_speech_tpu/utils/flac.py) is not "
-            f"ported yet. Put a sibling .wav next to the .flac")
-    if ext != ".wav":
+        audio, rate = read_flac(path)
+    elif ext == ".wav":
+        audio, rate = read_wav(path)
+    else:
         raise ValueError(f"unsupported audio format: {path}")
-    audio, rate = read_wav(path)
     if mono and audio.ndim > 1:
         audio = audio[:, 0]
     return audio, rate

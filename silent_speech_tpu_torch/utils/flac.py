@@ -1,0 +1,299 @@
+"""FLAC decoding in pure Python.
+
+Own copy of the decoder of the JAX package's
+``silent_speech_tpu/utils/flac.py``. The reference dataset stores audio as
+``{i}_audio_clean.flac`` read through libsndfile (``data_utils.py:64-65``);
+the port carries its own decoder. It covers what standard encoders write:
+constant, verbatim, fixed and LPC subframes, Rice and Rice2 residual
+partitions, left/right/mid-side stereo, 8 to 24 bits. Samples come back as
+float64 in [-1, 1), (frames,) for mono and (frames, channels) otherwise.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+
+
+class BitReader:
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data = data
+        self.byte_pos = pos
+        self.bit_pos = 0  # bits consumed within current byte
+
+    def read_bits(self, n: int) -> int:
+        """Read n bits MSB-first as an unsigned int."""
+        result = 0
+        while n > 0:
+            byte = self.data[self.byte_pos]
+            avail = 8 - self.bit_pos
+            take = min(n, avail)
+            shift = avail - take
+            bits = (byte >> shift) & ((1 << take) - 1)
+            result = (result << take) | bits
+            self.bit_pos += take
+            if self.bit_pos == 8:
+                self.bit_pos = 0
+                self.byte_pos += 1
+            n -= take
+        return result
+
+    def read_signed(self, n: int) -> int:
+        v = self.read_bits(n)
+        if v >= (1 << (n - 1)):
+            v -= 1 << n
+        return v
+
+    def read_unary(self) -> int:
+        """Count zero bits until (and consuming) the first 1 bit."""
+        count = 0
+        while True:
+            byte = self.data[self.byte_pos]
+            remaining = byte & ((1 << (8 - self.bit_pos)) - 1)
+            if remaining == 0:
+                count += 8 - self.bit_pos
+                self.bit_pos = 0
+                self.byte_pos += 1
+                continue
+            msb = remaining.bit_length()  # position of highest set bit
+            zeros = (8 - self.bit_pos) - msb
+            count += zeros
+            self.bit_pos += zeros + 1
+            if self.bit_pos >= 8:
+                self.bit_pos -= 8
+                self.byte_pos += 1
+            return count
+
+    def align_to_byte(self) -> None:
+        if self.bit_pos:
+            self.bit_pos = 0
+            self.byte_pos += 1
+
+    def read_utf8_number(self) -> int:
+        first = self.read_bits(8)
+        if first < 0x80:
+            return first
+        n_extra = 0
+        mask = 0x40
+        while first & mask:
+            n_extra += 1
+            mask >>= 1
+        value = first & (mask - 1)
+        for _ in range(n_extra):
+            value = (value << 6) | (self.read_bits(8) & 0x3F)
+        return value
+
+
+_BLOCKSIZE_TABLE = {
+    1: 192, 2: 576, 3: 1152, 4: 2304, 5: 4608,
+    8: 256, 9: 512, 10: 1024, 11: 2048, 12: 4096, 13: 8192, 14: 16384,
+    15: 32768,
+}
+_SAMPLE_RATE_TABLE = {
+    1: 88200, 2: 176400, 3: 192000, 4: 8000, 5: 16000, 6: 22050, 7: 24000,
+    8: 32000, 9: 44100, 10: 48000, 11: 96000,
+}
+
+
+def _decode_residual(br: BitReader, blocksize: int, predictor_order: int
+                     ) -> List[int]:
+    method = br.read_bits(2)
+    if not (method in (0, 1)):
+        raise ValueError(f"bad residual coding method {method}")
+    param_bits = 4 if method == 0 else 5
+    escape = (1 << param_bits) - 1
+    partition_order = br.read_bits(4)
+    n_partitions = 1 << partition_order
+    residual: List[int] = []
+    samples_per_partition = blocksize >> partition_order
+    for p in range(n_partitions):
+        count = samples_per_partition - (predictor_order if p == 0 else 0)
+        param = br.read_bits(param_bits)
+        if param == escape:
+            raw_bits = br.read_bits(5)
+            if raw_bits == 0:
+                residual.extend([0] * count)
+            else:
+                residual.extend(br.read_signed(raw_bits) for _ in range(count))
+        else:
+            for _ in range(count):
+                q = br.read_unary()
+                r = br.read_bits(param) if param else 0
+                v = (q << param) | r
+                residual.append((v >> 1) ^ -(v & 1))  # un-zigzag
+    return residual
+
+
+_FIXED_COEFFS = {
+    0: [],
+    1: [1],
+    2: [2, -1],
+    3: [3, -3, 1],
+    4: [4, -6, 4, -1],
+}
+
+
+def _decode_subframe(br: BitReader, blocksize: int, bps: int) -> np.ndarray:
+    pad = br.read_bits(1)
+    if not (pad == 0):
+        raise ValueError("invalid subframe padding bit")
+    sf_type = br.read_bits(6)
+    wasted = 0
+    if br.read_bits(1):
+        wasted = 1 + br.read_unary()
+        bps -= wasted
+
+    if sf_type == 0:  # CONSTANT
+        value = br.read_signed(bps)
+        out = np.full(blocksize, value, dtype=np.int64)
+    elif sf_type == 1:  # VERBATIM
+        out = np.array([br.read_signed(bps) for _ in range(blocksize)],
+                       dtype=np.int64)
+    elif 8 <= sf_type <= 12:  # FIXED, order = type - 8
+        order = sf_type - 8
+        warmup = [br.read_signed(bps) for _ in range(order)]
+        residual = _decode_residual(br, blocksize, order)
+        coeffs = _FIXED_COEFFS[order]
+        samples = list(warmup)
+        for res in residual:
+            pred = 0
+            for c, co in enumerate(coeffs):
+                pred += co * samples[-1 - c]
+            samples.append(pred + res)
+        out = np.array(samples, dtype=np.int64)
+    elif sf_type >= 32:  # LPC, order = type - 31
+        order = sf_type - 31
+        warmup = [br.read_signed(bps) for _ in range(order)]
+        precision = br.read_bits(4) + 1
+        shift = br.read_signed(5)
+        coeffs = [br.read_signed(precision) for _ in range(order)]
+        residual = _decode_residual(br, blocksize, order)
+        samples = list(warmup)
+        for res in residual:
+            pred = 0
+            for c in range(order):
+                pred += coeffs[c] * samples[-1 - c]
+            samples.append((pred >> shift) + res)
+        out = np.array(samples, dtype=np.int64)
+    else:
+        raise ValueError(f"reserved subframe type {sf_type}")
+
+    if wasted:
+        out = out << wasted
+    return out
+
+
+def _decode_frame(data: bytes, pos: int, stream_bps: int,
+                  stream_channels: int, stream_rate: int
+                  ) -> Tuple[np.ndarray, int]:
+    br = BitReader(data, pos)
+    sync = br.read_bits(14)
+    if not (sync == 0b11111111111110):
+        raise ValueError(f"bad frame sync at byte {pos}")
+    br.read_bits(1)  # reserved
+    br.read_bits(1)  # blocking strategy
+    bs_code = br.read_bits(4)
+    sr_code = br.read_bits(4)
+    ch_assign = br.read_bits(4)
+    ss_code = br.read_bits(3)
+    br.read_bits(1)  # reserved
+    br.read_utf8_number()  # frame or sample number
+
+    if bs_code == 6:
+        blocksize = br.read_bits(8) + 1
+    elif bs_code == 7:
+        blocksize = br.read_bits(16) + 1
+    else:
+        blocksize = _BLOCKSIZE_TABLE[bs_code]
+
+    if sr_code == 12:
+        br.read_bits(8)
+    elif sr_code in (13, 14):
+        br.read_bits(16)
+
+    bps_table = {0: stream_bps, 1: 8, 2: 12, 4: 16, 5: 20, 6: 24}
+    bps = bps_table[ss_code]
+    br.read_bits(8)  # CRC-8 (not verified)
+
+    if ch_assign < 8:
+        n_channels = ch_assign + 1
+        chans = [_decode_subframe(br, blocksize, bps)
+                 for _ in range(n_channels)]
+    elif ch_assign == 8:  # left/side
+        left = _decode_subframe(br, blocksize, bps)
+        side = _decode_subframe(br, blocksize, bps + 1)
+        chans = [left, left - side]
+    elif ch_assign == 9:  # right/side
+        side = _decode_subframe(br, blocksize, bps + 1)
+        right = _decode_subframe(br, blocksize, bps)
+        chans = [right + side, right]
+    elif ch_assign == 10:  # mid/side
+        mid = _decode_subframe(br, blocksize, bps)
+        side = _decode_subframe(br, blocksize, bps + 1)
+        left = ((mid << 1) | (side & 1)) + side
+        chans = [left >> 1, (left - (side << 1)) >> 1]
+        chans = [chans[0], chans[1]]
+    else:
+        raise ValueError(f"reserved channel assignment {ch_assign}")
+
+    br.align_to_byte()
+    br.byte_pos += 2  # CRC-16
+    block = np.stack(chans, axis=1)
+    return block, br.byte_pos
+
+
+def read_flac_bytes(data: bytes) -> Tuple[np.ndarray, int]:
+    if not (data[:4] == b"fLaC"):
+        raise ValueError("not a FLAC file")
+    pos = 4
+    sample_rate = bps = n_channels = total_samples = None
+    while True:
+        header = data[pos]
+        last = bool(header & 0x80)
+        btype = header & 0x7F
+        length = int.from_bytes(data[pos + 1: pos + 4], "big")
+        body = data[pos + 4: pos + 4 + length]
+        if btype == 0:  # STREAMINFO
+            br = BitReader(body)
+            br.read_bits(16)  # min blocksize
+            br.read_bits(16)  # max blocksize
+            br.read_bits(24)  # min framesize
+            br.read_bits(24)  # max framesize
+            sample_rate = br.read_bits(20)
+            n_channels = br.read_bits(3) + 1
+            bps = br.read_bits(5) + 1
+            total_samples = br.read_bits(36)
+        pos += 4 + length
+        if last:
+            break
+
+    if not (sample_rate is not None):
+        raise ValueError("missing STREAMINFO")
+    blocks = []
+    decoded = 0
+    while pos < len(data) - 2:
+        block, pos = _decode_frame(data, pos, bps, n_channels, sample_rate)
+        blocks.append(block)
+        decoded += block.shape[0]
+        if total_samples and decoded >= total_samples:
+            break
+    samples = np.concatenate(blocks, axis=0)
+    if total_samples:
+        samples = samples[:total_samples]
+    scale = float(1 << (bps - 1))
+    audio = samples.astype(np.float64) / scale
+    if audio.shape[1] == 1:
+        audio = audio[:, 0]
+    return audio, sample_rate
+
+
+def read_flac(path: str) -> Tuple[np.ndarray, int]:
+    """A FLAC file → (samples, sample rate). A file that is not FLAC, or
+    ends inside a block, raises ``ValueError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return read_flac_bytes(data)
+    except IndexError as e:
+        raise ValueError(f"{path}: truncated FLAC stream") from e

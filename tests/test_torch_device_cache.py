@@ -75,7 +75,7 @@ def test_assembled_batch_matches_jax(examples):
     utt_ids, valid = _ids(ids)
     ref = jax_assemble_batch(jcorpus.arrays, jnp.asarray(utt_ids, jnp.int32),
                              jnp.asarray(valid), n_chunks=N_CHUNKS,
-                             seq_len=SEQ_LEN, t_cap=T_CAP, text_cap=64)
+                             seq_len=SEQ_LEN, t_cap=T_CAP, text_cap=128)
     dev = _assemble(corpus, ids)
     for name in dev._fields:  # gathers and copies: exact
         np.testing.assert_array_equal(getattr(dev, name).numpy(),

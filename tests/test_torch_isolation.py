@@ -8,14 +8,18 @@ import numpy as np
 import pytest
 import torch
 
-from silent_speech_tpu_torch import bench, transduction_model
+from silent_speech_tpu_torch import (bench, recognition_model,
+                                     transduction_model)
 from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
+                                            RecognitionTrainConfig,
                                             TransductionTrainConfig)
 from silent_speech_tpu_torch.data.dataset import ExampleList
 from silent_speech_tpu_torch.eval import export, server
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.ops import build
+from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
 from silent_speech_tpu_torch.train.transduction import TransductionTrainer
+from silent_speech_tpu_torch.utils import native
 from silent_speech_tpu_torch.utils.device import card_info, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -155,3 +159,46 @@ def test_fit_runs_on_the_cpu_only_when_asked(tmp_path):
     model = trainer.fit(_examples(), _examples(), epochs=1)
     assert {p.device.type for p in model.parameters()} == {"cpu"}
     assert (tmp_path / "model.pt").is_file()
+
+
+def _tiny_recognizer(device, out_dir):
+    cfg = ModelConfig(model_size=32, num_layers=1, num_heads=2,
+                      dim_feedforward=64, relative_positional_distance=4,
+                      compute_dtype="float32")
+    return RecognitionTrainer(
+        cfg, DataConfig(seq_len=20, fixed_shapes=False),
+        RecognitionTrainConfig(output_directory=str(out_dir), lm_path=""),
+        device=device)
+
+
+def test_recognition_entry_points_raise_without_a_card(no_card, tmp_path):
+    for call in (lambda: RecognitionTrainer(),
+                 lambda: recognition_model.main(
+                     ["--output_directory", str(tmp_path)]),
+                 lambda: recognition_model.main(
+                     ["--evaluate_saved", str(tmp_path / "model.pt")])):
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            call()
+    assert not any(tmp_path.iterdir())   # raised before any work
+
+
+def test_recognition_fit_runs_on_the_cpu_only_when_asked(tmp_path):
+    trainer = _tiny_recognizer("cpu", tmp_path)
+    model = trainer.fit(_examples(), _examples(), epochs=1)
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    assert {a.device.type for a in trainer.optimizer.acc} == {"cpu"}
+    assert (tmp_path / "model.pt").is_file()
+
+
+def test_the_native_search_builds_from_the_port_tree_alone():
+    # its own copy of the C++ sources, built by g++ into build/native;
+    # never the JAX package's cpp/ directory or its Makefile
+    assert native.SOURCE_DIR == ROOT / "silent_speech_tpu_torch" / "native"
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    text = (ROOT / "silent_speech_tpu_torch" / "utils" / "native.py"
+            ).read_text()
+    assert "cpp/" not in text and "make" not in text
+    for src in native.SOURCE_DIR.iterdir():
+        for line in src.read_text().splitlines():
+            if line.startswith("#include \""):
+                assert (native.SOURCE_DIR / line.split('"')[1]).is_file()

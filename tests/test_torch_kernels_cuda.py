@@ -412,3 +412,73 @@ def test_get_aligned_prediction_runs_the_dtw_kernel(card):
         torch.tensor([y.shape[0]]), torch.tensor([pred.shape[0]]))
     np.testing.assert_array_equal(out, norm.inverse(pred[align[0].numpy()]))
     assert out.shape == (83, 80)
+
+
+def _tiny_recognizer(device):
+    from silent_speech_tpu_torch.config import DataConfig
+    from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
+
+    cfg = ModelConfig(model_size=64, num_layers=2, num_heads=2,
+                      dim_feedforward=128, relative_positional_distance=16,
+                      compute_dtype="float32")
+    trainer = RecognitionTrainer(
+        cfg, DataConfig(seq_len=200, chunk_bucket=1, fixed_shapes=False),
+        device=device)
+    trainer.init_state(0)
+    return trainer
+
+
+def _recognition_examples():
+    rng = np.random.default_rng(2)
+    out = []
+    for t, text in ((150, [19, 7, 4, 36, 2, 0, 19]), (260, [3, 14, 6]),
+                    (90, [0, 36, 1])):
+        out.append({"emg": np.zeros((t, 112), np.float32),
+                    "raw_emg": rng.normal(size=(8 * t, 8)).astype(
+                        np.float32),
+                    "session_ids": np.zeros(t, np.int64), "silent": False,
+                    "text": "x", "text_int": np.asarray(text, np.int64),
+                    "phonemes": np.zeros(t, np.int64),
+                    "audio_features": np.zeros((t, 80), np.float32)})
+    return out
+
+
+def test_recognition_micro_step_with_kernels_matches_plain(card,
+                                                           monkeypatch):
+    # f32: the loss to 1e-4 relative, every gradient to 1e-3 of its
+    # largest entry (sums in another order; CTC's CUDA backward is not
+    # deterministic). The biases of the convs in front of a BatchNorm have
+    # an exact gradient of 0 (the norm subtracts the batch mean): what
+    # either run computes there is rounding noise, so they are not compared
+    from silent_speech_tpu_torch.models import transformer
+
+    batch = _tiny_recognizer("cpu")._pack(_recognition_examples())
+    kernels = _tiny_recognizer("cuda")
+    before = (rel_attention.launches, rel_attention_bwd.launches)
+    loss = kernels.train_step(batch, 1e-3)
+    torch.cuda.synchronize()
+    assert (rel_attention.launches - before[0],
+            rel_attention_bwd.launches - before[1]) == (2, 2)
+    monkeypatch.setattr(transformer, "rel_attention", rel_attention_plain)
+    plain = _tiny_recognizer("cuda")
+    ref = plain.train_step(batch, 1e-3)
+    assert loss.item() == pytest.approx(ref.item(), rel=1e-4)
+    for (name, p), q in zip(kernels.model.named_parameters(),
+                            plain.model.parameters()):
+        if name.endswith(("conv1.bias", "conv2.bias", "residual_path.bias")):
+            continue
+        tol = 1e-3 * float(q.grad.abs().max())
+        torch.testing.assert_close(p.grad, q.grad, rtol=0, atol=tol,
+                                   msg=name)
+    assert kernels.optimizer.mini_step == 1
+
+
+def test_recognition_validation_on_the_card_matches_the_cpu(card):
+    examples = _recognition_examples()
+    cpu = _tiny_recognizer("cpu").batch_logits(examples)
+    before = rel_attention.launches
+    out = _tiny_recognizer("cuda").batch_logits(examples)
+    # one B=1 forward a utterance, 2 layers each
+    assert rel_attention.launches == before + 2 * len(examples)
+    for o, r in zip(out, cpu):
+        np.testing.assert_allclose(o, r, rtol=0, atol=1e-4)

@@ -1,8 +1,8 @@
 """One full transduction training step of the port vs the JAX package, at
 dropout 0, shift off, float32: ``jax.value_and_grad`` over
-``EMGEncoder.apply(train=True)`` plus ``transduction_loss``, then
-``fused_adamw`` (bfloat16 moments) or ``optax.adamw`` (float32 moments),
-against ``TransductionTrainer.train_step`` with the same weights and batch.
+``EMGEncoder.apply(train=True)`` plus ``transduction_loss``, then the
+JAX trainers' ``make_adamw`` (``fused_adamw`` for bfloat16 moments,
+``optax.adamw`` for float32, each under ``inject_hyperparams``), against ``TransductionTrainer.train_step`` with the same weights and batch.
 Loss, gradients, BatchNorm statistics and the updated parameters are
 compared; so are the optimizers alone on the same gradients, and the
 learning-rate schedule.
@@ -23,7 +23,7 @@ from silent_speech_tpu.data.packing import pack_batch as jax_pack_batch
 from silent_speech_tpu.models.encoder import EMGEncoder as JaxEncoder
 from silent_speech_tpu.train import schedule as jax_schedule
 from silent_speech_tpu.train.losses import transduction_loss as jax_loss
-from silent_speech_tpu.train.state import fused_adamw
+from silent_speech_tpu.train.state import make_adamw, set_learning_rate
 from silent_speech_tpu_torch.config import (DataConfig,
                                             TransductionTrainConfig)
 from silent_speech_tpu_torch.models.convert import jax_to_torch
@@ -102,9 +102,11 @@ def _jax_step(jmodel, variables, batch, tx):
 
 
 def _tx(moment_dtype):
-    if moment_dtype == "float32":
-        return optax.adamw(LR, b1=0.9, b2=0.999, eps=1e-8, weight_decay=L2)
-    return fused_adamw(LR, weight_decay=L2, moment_dtype=jnp.bfloat16)
+    # the JAX trainers' optimizer: make_adamw, whose inject_hyperparams
+    # holds β, ε and the decay as float32 arrays (so 1 − β is float32)
+    tx = make_adamw(weight_decay=L2, moment_dtype=moment_dtype)
+    return optax.GradientTransformation(
+        lambda params: set_learning_rate(tx.init(params), LR), tx.update)
 
 
 @pytest.fixture(scope="module")
