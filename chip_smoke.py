@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments::
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. build every CUDA kernel from ``silent_speech_tpu_torch/csrc`` with nvcc,
-   one process per source, all started together;
+   one process per source, all started together, and beside them the
+   native beam search with g++;
 2. hold each kernel against its plain PyTorch version on the card: the
    attention forward (bf16 runs one WMMA kernel, f32 the f32 one; serving
    shapes and the training shapes with dropout, the recognition
@@ -18,7 +19,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    kernel and a fixed-order sum of its partials; two calls at the training
    shape must be bit-equal in each dtype) and the DTW alignment with its
    DP-only mode (prof_dtw's shape with the n ∈ {1, 2} edge cases, T2 =
-   1001 and integer costs with many exact ties; bf16 and f32);
+   1001 and integer costs with many exact ties; bf16 and f32) and the
+   CTC forward and backward (optax's clamped lattice, ``csrc/ctc.cu``) at
+   a recognition micro-step's shape with padding rows, a repeat and a last
+   label of 0, with and without an infeasible row; two calls must be
+   bit-equal and the gradient exactly 0 where none flows;
 3. serve: init a full-width transduction model and a full-width
    recognition model from a seed, save each as a reference-layout
    ``model.pt``, export both with the export CLI, load the bundles on the
@@ -55,21 +60,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    version's;
 6. recognition: the same 4 sets with each text spelled from its character
    ids, a validation set, a bigram ARPA LM of the training texts (written
-   here) and the native beam search built from
-   ``silent_speech_tpu_torch/native``; a full-width recognizer (38 outputs,
-   bf16, dropout 0.2, shift, gradient accumulation 2, 64 chunks of 200)
-   prints its micro-steps/s on the device corpus and, under the profiler,
-   device busy per micro-step and per update and the idle share; ``fit()``
+   here) and the native beam search (built in 1); a full-width recognizer
+   (38 outputs, bf16, dropout 0.2, shift, gradient accumulation 2, 64
+   chunks of 200) prints its micro-steps/s on the device corpus and,
+   under the profiler, device busy per micro-step and per update and the
+   idle share; two
+   micro-steps from one state on one batch must give equal losses and
+   torch.equal gradients (one CTC forward and backward each); ``fit()``
    for 2 epochs with beam-decoded validation WER, then a resumed 3rd epoch
    whose state before its first micro-step (accumulator included) must
    equal the saved one; the counts zeroed before the first fit and read
-   after the resume: 6 forward and 6 backward attention launches a
-   micro-step, 6 forward a validation utterance; the weights must move at
+   after the resume: 6 forward and 6 backward attention launches and one
+   CTC forward and backward a micro-step, 6 forward attention and no CTC
+   a validation utterance; the weights must move at
    every second micro-step only; the native beam against the plain one on
    one utterance; an f32 micro-step with the kernels against the plain
    attention; the trained ``model.pt`` exported and one ``/v1/recognize``
    answered from it (6 forward launches);
-7. time the requests per bucket, the forward per bucket, the training
+7. from disk, through the entry points a user calls: the port's own
+   generator writes a learnable FLAC corpus (2 voiced, 2 silent and 1
+   non-parallel session of 6 utterances) under ``build/``;
+   ``make_testset`` and ``make_normalizers`` run on it; the transduction
+   CLI trains one epoch at the defaults (d=768, 6 layers, 8 heads) and
+   writes ``model.pt``; ``evaluate --models model.pt model.pt`` must give
+   the numbers of ``model.pt`` alone, with 2 x 6 forward attention
+   launches an eval group; the recognition CLI trains one epoch (its
+   validation WER printed as read) and ``--evaluate_saved`` scores its
+   ``model.pt``; every CLI's launches are counted against its steps,
+   validation batches and utterances, and the phase prints its wall time;
+8. time the requests per bucket, the forward per bucket, the training
    steps (median of 3 synced trials) and each kernel per launch at the
    main path's shapes against its bound and its plain version (the bf16
    attention forward also by its device time per launch under the
@@ -80,7 +99,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the recognition micro-step's B=64 and in f32, and PyTorch's
    scaled_dot_product_attention with the relative bias precomputed as a
    yardstick for the bf16 forward, not the same function and never
-   called by the port), and
+   called by the port), the CTC forward and backward on a recognition
+   micro-step's own inputs (against ``F.ctc_loss`` forward and backward
+   on its rows with text, timed as the library column, never called by
+   the port), and
    profile one forward and one training step (device busy time, idle
    share, kernels by time).
 
@@ -90,6 +112,7 @@ line describing each kernel, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import logging
@@ -158,6 +181,24 @@ COMPARED_GRADS = ("conv_blocks.0.conv1.weight",
 FIT_EPOCHS = 2                     # then resumed for one more
 DEV_FRAMES = 6000                  # the validation set: one eval batch
 REC_PROFILED_STEPS = 8             # 4 updates at gradient accumulation 2
+# CTC at a recognition micro-step: 64 utterance rows (19 real), t_cap frames,
+# TEXT_CAP label positions, 38 classes
+REC_CTC = dict(u=64, t=1024, s=128, n_real=19)
+# CTC kernel vs plain: float32, the same operations; the NLL to 1e-6
+# relative (an infeasible row's ~1e5 included), the gradient to 1e-5 of its
+# largest entry (the backward's sums in another order)
+CTC_NLL_RTOL = 1e-6
+CTC_GRAD_RTOL = 1e-5
+# the on-disk phase's corpus: the port's own generator, learnable signals,
+# FLAC audio; then dev and test splits of DISK_SPLIT sentences each
+DISK_CORPUS = dict(n_voiced_sessions=2, n_silent_sessions=2, n_nonparallel=1,
+                   utterances_per_session=6, audio_format="flac",
+                   learnable=True)
+DISK_SPLIT = 3
+# evaluate with model.pt twice against model.pt alone: the mean of two
+# equal outputs is exact and every kernel of the eval forward is
+# deterministic, so the loss to 1e-6 relative, accuracy and confusion equal
+ENSEMBLE_RTOL = 1e-6
 # the native and the plain beam search agree exactly at this width; at 100
 # they can part on a near-tie of two prefixes (log1p against log of a sum)
 REC_BEAM_CHECK = 16
@@ -240,6 +281,25 @@ def dtw_bound(n1, n2, t1, item):
     k = len(n1)
     nbytes = cells * item + 8 * k + 4 * k * t1 + 4 * k
     return _bound(nbytes, 4 * cells, "float32")
+
+
+def ctc_bound(lp, utt_len, labels, text_len):
+    """Least time for the CTC forward and backward on this run's data, and
+    the bytes it counts: the log-probs of the live frames of rows with text
+    read once (nothing else of them is needed), their labels, the counts
+    and the NLL's cotangent read once, the dense (U, T, K) gradient and the
+    NLL written once; or 61 f32 operations a live (frame, position) cell of
+    a row with text over the f32 peak (``csrc/ctc.cu``: 24 forward, 35 in
+    the backward's recursion, 2 in the gradient's sum; an exp or a log1p
+    counted as one). The larger wins."""
+    u, t, k = lp.shape
+    frames = utt_len.long().clamp(0, t)
+    text = text_len.long().clamp(0, labels.shape[1])
+    live = text > 0
+    nbytes = (4 * k * int(frames[live].sum()) + 4 * int(text.sum())
+              + 3 * 4 * u + 4 * lp.numel() + 4 * u)
+    cells = int((frames[live] * (text[live] + 1)).sum())
+    return (*_bound(nbytes, 61 * cells, "float32"), nbytes)
 
 
 def queued_ms(fn, iters: int = 20) -> float:
@@ -526,7 +586,89 @@ def check_kernels():
         f"shape, {diagonals} diagonals): kernel {ms:.4f} ms/launch, dp_only "
         f"{dp_ms:.4f} ms ({dp_ms * 1e6 / diagonals:.1f} ns a diagonal)")
     del c, costs, ties, dtw_cases
+    check_ctc(errs)
     return errs
+
+
+def ctc_inputs(seed, infeasible=False, u=64, t=1024, s=128, n_real=19):
+    """CTC inputs at a recognition micro-step's shape, on the card: (U, T,
+    38) log-probs, then per row its frames, its labels (padded with −1) and
+    their count. Rows past ``n_real`` are padding rows (no frames, no
+    labels); real rows have 200..t frames and about one label a 9 frames
+    (the spoken rate at 86 frames a second). With ``infeasible``, row 2
+    has 5 labels over 4 frames."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.normal(size=(u, t, 38)).astype(np.float32) * 2), -1)
+    utt_len = np.zeros(u, np.int64)
+    text_len = np.zeros(u, np.int64)
+    labels = np.full((u, s), -1, np.int64)
+    for i in range(n_real):
+        utt_len[i] = rng.integers(200, t + 1)
+        text_len[i] = min(s, utt_len[i] // 9)
+        labels[i, :text_len[i]] = rng.integers(0, 37, size=text_len[i])
+    labels[0, 1] = labels[0, 0]          # a repeat
+    labels[1, text_len[1] - 1] = 0       # a last label of 0
+    if infeasible:
+        utt_len[2], text_len[2] = 4, 5
+        labels[2] = -1
+        labels[2, :5] = [1, 2, 3, 4, 5]
+    return [lp.cuda()] + [torch.from_numpy(x).cuda()
+                          for x in (utt_len, labels, text_len)]
+
+
+def ctc_run(fn, lp, utt_len, labels, text_len, weights):
+    """``fn``'s NLL and its gradient at ``lp`` of Σ weights · NLL."""
+    x = lp.detach().clone().requires_grad_()
+    nll = fn(x, utt_len, labels, text_len, 37)
+    (nll * weights).sum().backward()
+    return nll.detach(), x.grad
+
+
+def check_ctc(errs):
+    """Phase 2, CTC: the kernel against the plain version at a recognition
+    micro-step's shape, with padding rows, with and without an infeasible
+    row; two calls bit-equal; exact zeros where no gradient flows."""
+    import torch
+    from silent_speech_tpu_torch.ops.ctc import ctc_nll, ctc_nll_plain
+
+    for infeasible in (False, True):
+        args = ctc_inputs(SEED + 20, infeasible, **REC_CTC)
+        weights = torch.rand(args[0].shape[0], device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(21))
+        nll, grad = ctc_run(ctc_nll, *args, weights)
+        torch.cuda.synchronize()
+        ref, ref_grad = ctc_run(ctc_nll_plain, *args, weights)
+        again = ctc_run(ctc_nll, *args, weights)
+        nll_rel = ((nll - ref).abs() / ref.abs().clamp_min(1e-30)).max(
+            ).item()
+        grad_err = (grad - ref_grad).abs().max().item()
+        tol = CTC_GRAD_RTOL * ref_grad.abs().max().item()
+        utt_len, text_len = args[1], args[3]
+        frames = torch.arange(grad.shape[1], device="cuda")
+        dead = (frames[None, :] >= utt_len[:, None]) | (text_len == 0)[:, None]
+        zeros = not grad[dead].any()
+        same = torch.equal(nll, again[0]) and torch.equal(grad, again[1])
+        ok = (bool(torch.isfinite(nll).all()) and nll_rel <= CTC_NLL_RTOL
+              and grad_err <= tol and zeros and same)
+        log(f"[kernel] ctc U={args[0].shape[0]} ({int((text_len > 0).sum())} "
+            f"real rows, the rest padding) T={args[0].shape[1]} "
+            f"S={args[2].shape[1]} K=38"
+            + (", row 2 infeasible (NLL "
+               f"{nll[2].item():.2f}, plain {ref[2].item():.2f})"
+               if infeasible else "")
+            + f": NLL max rel err {nll_rel:.3g} (tolerance {CTC_NLL_RTOL}), "
+            f"gradient max_abs_err {grad_err:.3g} (tolerance {tol:.3g} = "
+            f"{CTC_GRAD_RTOL} x max|ref|), exact zeros past each row's "
+            f"frames and on rows without labels: {zeros}, two calls "
+            f"bit-equal: {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the CTC kernel disagrees with its plain "
+                                 "version, or is not deterministic")
+        errs[("ctc", infeasible)] = grad_err
 
 
 def locate_bwd_stage(q, k, v, e, dout, thresh):
@@ -609,9 +751,7 @@ def serve(card, work):
         n_requests = len(requests) * (1 + TIMED_REQUESTS)
         layers = bundles["transduction"].model.cfg.num_layers
         log(f"[serve] {n_requests} requests, launches {launches}")
-        if launches != {"rel_attention_fwd": layers * n_requests,
-                        "rel_attention_bwd": 0, "dtw_align": 0,
-                        "dtw_align_dp_only": 0}:
+        if launches != launch_counts(rel_attention_fwd=layers * n_requests):
             raise AssertionError(
                 f"expected {layers} forward attention launches per request "
                 f"and no other kernel, got {launches} for {n_requests}")
@@ -701,15 +841,18 @@ def swapped(module, name, fn):
 
 
 def reset_launches():
+    from silent_speech_tpu_torch.ops.ctc import ctc_nll
     from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
     from silent_speech_tpu_torch.ops.rel_attention import (
         rel_attention, rel_attention_bwd)
 
     rel_attention.launches = rel_attention_bwd.launches = 0
     dtw_align_batch.launches = dtw_align_batch.dp_only_launches = 0
+    ctc_nll.launches = ctc_nll.backward_launches = 0
 
 
 def read_launches():
+    from silent_speech_tpu_torch.ops.ctc import ctc_nll
     from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
     from silent_speech_tpu_torch.ops.rel_attention import (
         rel_attention, rel_attention_bwd)
@@ -717,7 +860,15 @@ def read_launches():
     return {"rel_attention_fwd": rel_attention.launches,
             "rel_attention_bwd": rel_attention_bwd.launches,
             "dtw_align": dtw_align_batch.launches,
-            "dtw_align_dp_only": dtw_align_batch.dp_only_launches}
+            "dtw_align_dp_only": dtw_align_batch.dp_only_launches,
+            "ctc": ctc_nll.launches, "ctc_bwd": ctc_nll.backward_launches}
+
+
+def launch_counts(**counts):
+    """A ``read_launches()`` dict with ``counts`` and 0 for the rest."""
+    names = ("rel_attention_fwd", "rel_attention_bwd", "dtw_align",
+             "dtw_align_dp_only", "ctc", "ctc_bwd")
+    return {name: counts.get(name, 0) for name in names}
 
 
 def train(card):
@@ -772,10 +923,11 @@ def train(card):
             trials.append(n / (time.perf_counter() - t0))
     launches = read_launches()
     layers = trainer.model_cfg.num_layers
-    expected = {"rel_attention_fwd": layers * n_steps,
-                "rel_attention_bwd": layers * n_steps,
-                "dtw_align": sum(1 for b in order if b.num_silent),
-                "dtw_align_dp_only": 0}  # a timing mode, off the path
+    # (dtw_align_dp_only: a timing mode, off the path)
+    expected = launch_counts(
+        rel_attention_fwd=layers * n_steps,
+        rel_attention_bwd=layers * n_steps,
+        dtw_align=sum(1 for b in order if b.num_silent))
     log(f"[train] {n_steps} steps, launches {launches} (expected "
         f"{expected})")
     if launches != expected or not all(expected[k] for k in (
@@ -1095,12 +1247,11 @@ def train_run(card, work):
     silent = [sum(bool(train_set[i]["silent"]) for i in args[1])
               for args, _ in steps]
     layers = ModelConfig().num_layers
-    expected = {
-        "rel_attention_fwd": layers * (len(steps) + len(evals)),
-        "rel_attention_bwd": layers * len(steps),
-        "dtw_align": sum(1 for n in silent if n)
-        + sum(1 for (batch,), _ in evals if batch.num_silent),
-        "dtw_align_dp_only": 0}
+    expected = launch_counts(
+        rel_attention_fwd=layers * (len(steps) + len(evals)),
+        rel_attention_bwd=layers * len(steps),
+        dtw_align=sum(1 for n in silent if n)
+        + sum(1 for (batch, *_), _ in evals if batch.num_silent))
     log(f"[fit] launches in the fit() and resume windows {fit_launches} "
         f"(expected {expected}: 6 forward and 6 backward attention and a "
         f"DTW a step, 6 forward attention and a DTW a validation batch)")
@@ -1136,9 +1287,8 @@ def train_run(card, work):
     plain = dtw_align_batch_plain(costs, n1, n2)[0]
     t_tgt = example["parallel_voiced_audio_features"].shape[0]
     ok = (aligned.shape == (t_tgt, 80) and np.isfinite(aligned).all()
-          and torch.equal(ours, plain) and aligned_launches == {
-              "rel_attention_fwd": layers, "rel_attention_bwd": 0,
-              "dtw_align": 1, "dtw_align_dp_only": 0})
+          and torch.equal(ours, plain) and aligned_launches == launch_counts(
+              rel_attention_fwd=layers, dtw_align=1))
     log(f"[fit] get_aligned_prediction of a silent utterance (T "
         f"{example['emg'].shape[0]} frames, target {t_tgt}): output "
         f"{aligned.shape}, finite {np.isfinite(aligned).all()}, DTW K=1 "
@@ -1192,8 +1342,10 @@ def recognition_run(card, work):
     from silent_speech_tpu_torch.eval.server import ServingServer
     from silent_speech_tpu_torch.models import transformer
     from silent_speech_tpu_torch.models.encoder import EMGEncoder
+    from silent_speech_tpu_torch.ops.ctc import ctc_nll
     from silent_speech_tpu_torch.ops.rel_attention import rel_attention_plain
     from silent_speech_tpu_torch.text import TextTransform
+    from silent_speech_tpu_torch.train import losses
     from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
     from silent_speech_tpu_torch.utils import native
 
@@ -1264,7 +1416,45 @@ def recognition_run(card, work):
         f"{np.round(rates, 3).tolist()} micro-steps/s over trials of "
         f"{bench.TRIAL_STEPS}, median {float(np.median(rates)):.3f} "
         f"({float(np.median(rates)) / 2:.3f} updates/s); {busy}")
-    del tr, corpus
+    del tr
+    torch.cuda.empty_cache()
+
+    # two micro-steps from one state (the same seeds) on one batch: equal
+    # losses and gradients (the port's CTC and deterministic convolutions);
+    # the first one's CTC inputs are kept for the kernel's timing
+    captured, twins = {}, []
+
+    def capture(lp, *rest):
+        captured.setdefault("args", (lp.detach().clone(), *rest))
+        return ctc_nll(lp, *rest)
+
+    for _ in range(2):
+        twin = trainer(SEED)
+        reset_launches()
+        with swapped(losses, "ctc_nll", capture):
+            loss = twin.train_step_ids(corpus, id_batches[0], 1e-4)
+        twins.append((loss, read_launches(),
+                      {n: p.grad.detach().clone()
+                       for n, p in twin.model.named_parameters()}))
+        del twin
+        torch.cuda.empty_cache()
+    (loss_a, counts, grads_a), (loss_b, _, grads_b) = twins
+    differ = [n for n, g in grads_a.items() if not torch.equal(g,
+                                                                grads_b[n])]
+    layers = ModelConfig().num_layers
+    ok = (torch.equal(loss_a, loss_b) and not differ
+          and counts == launch_counts(rel_attention_fwd=layers,
+                                      rel_attention_bwd=layers, ctc=1,
+                                      ctc_bwd=1))
+    log(f"[rec] two micro-steps from one state on one batch: losses "
+        f"{loss_a.item():.6f} and {loss_b.item():.6f}, all {len(grads_a)} "
+        f"gradients torch.equal: {not differ}"
+        + (f" (differ: {differ})" if differ else "")
+        + f"; launches a micro-step {counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("two recognition micro-steps from one state "
+                             "differ, or launched other kernels")
+    del corpus, twins, grads_a, grads_b
     torch.cuda.empty_cache()
 
     # fit() for 2 epochs with validation WER, then a resumed 3rd epoch;
@@ -1344,10 +1534,11 @@ def recognition_run(card, work):
     moves = calls["moves"] + calls_2["moves"]
     wers = calls["wer"] + calls_2["wer"]
     layers = ModelConfig().num_layers
-    expected = {"rel_attention_fwd": layers * (len(steps)
-                                               + len(wers) * len(dev_set)),
-                "rel_attention_bwd": layers * len(steps),
-                "dtw_align": 0, "dtw_align_dp_only": 0}
+    # one CTC forward and backward a micro-step; none in validation
+    expected = launch_counts(
+        rel_attention_fwd=layers * (len(steps) + len(wers) * len(dev_set)),
+        rel_attention_bwd=layers * len(steps), ctc=len(steps),
+        ctc_bwd=len(steps))
     losses = torch.stack(steps).cpu().numpy()
     emit = [i % 2 == 1 for i in range(len(steps))]
     log(f"[rec] fit(): {len(calls['ids'])} micro-steps in {FIT_EPOCHS} "
@@ -1356,8 +1547,9 @@ def recognition_run(card, work):
         f"host-packed; validation WER {np.round(wers, 4).tolist()}; "
         f"losses {np.round(losses, 3).tolist()}")
     log(f"[rec] launches in the fit() and resume windows {fit_launches} "
-        f"(expected {expected}: 6 forward and 6 backward attention a "
-        f"micro-step, 6 forward a validation utterance)")
+        f"(expected {expected}: 6 forward and 6 backward attention and one "
+        f"CTC forward and backward a micro-step, 6 forward attention and "
+        f"no CTC a validation utterance)")
     log(f"[rec] the weights moved at micro-steps "
         f"{[i + 1 for i, (_, m) in enumerate(moves) if m]} of "
         f"{len(moves)} (every second); the resumed state before its first "
@@ -1458,11 +1650,305 @@ def recognition_run(card, work):
     if not ok:
         raise AssertionError("the recognize request failed")
     logging.getLogger().removeHandler(handler)
-    return fit_launches, serve_launches
+    return fit_launches, serve_launches, captured["args"]
 
 
-def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs):
-    """Phase 7, kernels: ms per launch at the main path's shapes, against
+def counted(cls, name, sink, silent_of):
+    """Wrap the method ``cls.name`` in the block: each call that returns
+    something appends ``silent_of(*args)`` (whether its batch has silent
+    rows) to ``sink``."""
+    orig = getattr(cls, name)
+
+    def wrapped(self, *args):
+        out = orig(self, *args)
+        if out is not None:
+            sink.append(silent_of(*args))
+        return out
+
+    return swapped(cls, name, wrapped)
+
+
+def log_lines(path, prefix):
+    with open(path) as f:
+        return [line.strip() for line in f if line.startswith(prefix)]
+
+
+def disk_run(card, work):
+    """Phase 7: the entry points a user calls, on a corpus on disk, at full
+    width. Returns the launches of the whole phase."""
+    import torch
+    from silent_speech_tpu_torch import (evaluate, make_normalizers,
+                                         make_testset, recognition_model,
+                                         transduction_model)
+    from silent_speech_tpu_torch.config import ModelConfig
+    from silent_speech_tpu_torch.data.dataset import EMGDataset
+    from silent_speech_tpu_torch.data.synthetic import generate_corpus
+    from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
+    from silent_speech_tpu_torch.train.transduction import \
+        TransductionTrainer
+
+    t_phase = time.perf_counter()
+    layers = ModelConfig().num_layers
+    total = launch_counts()
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    t0 = time.perf_counter()
+    cfg = generate_corpus(os.path.join(work, "corpus"), seed=SEED,
+                          **DISK_CORPUS)
+    gen_s = time.perf_counter() - t0
+    data = ["--silent_data_directories",
+            ",".join(cfg.silent_data_directories),
+            "--voiced_data_directories",
+            ",".join(cfg.voiced_data_directories),
+            "--testset_file", cfg.testset_file,
+            "--text_align_directory", cfg.text_align_directory,
+            "--normalizers_file", cfg.normalizers_file]
+    t0 = time.perf_counter()
+    split = make_testset.main(data + ["--dev_size", str(DISK_SPLIT),
+                                      "--test_size", str(DISK_SPLIT),
+                                      "--split_seed", str(SEED)])
+    make_normalizers.main(data)
+    tools_s = time.perf_counter() - t0
+    trainset = EMGDataset(cfg)
+    devset, testset = EMGDataset(cfg, dev=True), EMGDataset(cfg, test=True)
+    n_utts = sum(len(os.listdir(os.path.join(d, s)))
+                 for d in (cfg.silent_data_directories
+                           + cfg.voiced_data_directories)
+                 for s in os.listdir(d)) // 3
+    log(f"[disk] corpus of {n_utts} utterances (learnable, FLAC; "
+        f"{DISK_CORPUS['n_voiced_sessions']} voiced, "
+        f"{DISK_CORPUS['n_silent_sessions']} silent and "
+        f"{DISK_CORPUS['n_nonparallel']} non-parallel session(s) of "
+        f"{DISK_CORPUS['utterances_per_session']}) written in "
+        f"{gen_s:.2f} s; make_testset ({len(split['dev'])} dev and "
+        f"{len(split['test'])} test sentences) and make_normalizers in "
+        f"{tools_s:.2f} s; splits of {len(trainset)} training, "
+        f"{len(devset)} dev and {len(testset)} test utterances")
+
+    # the transduction CLI: one epoch at the defaults (d=768, 6 layers)
+    run = os.path.join(work, "transduction")
+    steps, evals = [], []
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(counted(
+            TransductionTrainer, "train_step_ids", steps,
+            lambda corpus, ids, lr: bool(corpus.silent_mask[list(ids)].any())))
+        stack.enter_context(counted(TransductionTrainer, "train_step", steps,
+                                    lambda b, lr: b.num_silent > 0))
+        stack.enter_context(counted(TransductionTrainer, "eval_step", evals,
+                                    lambda b, model=None: b.num_silent > 0))
+        trainer = transduction_model.main(data + ["--output_directory", run,
+                                                  "--epochs", "1"])
+    torch.cuda.synchronize()
+    tr_s = time.perf_counter() - t0
+    launches = read_launches()
+    add(launches)
+    width = (trainer.model_cfg.model_size, trainer.model_cfg.num_layers,
+             trainer.model_cfg.num_heads)
+    del trainer
+    torch.cuda.empty_cache()
+    expected = launch_counts(
+        rel_attention_fwd=layers * (len(steps) + len(evals)),
+        rel_attention_bwd=layers * len(steps),
+        dtw_align=sum(steps) + sum(evals))
+    finished = log_lines(os.path.join(run, "log.txt"), "finished epoch")
+    model_pt = os.path.join(run, "model.pt")
+    log(f"[disk] transduction CLI, 1 epoch at d={width[0]}, {width[1]} "
+        f"layers, {width[2]} heads: {len(steps)} step(s), {len(evals)} "
+        f"validation batch(es) in {tr_s:.2f} s; {finished}; launches "
+        f"{launches} (expected {expected})")
+    if (width != (768, 6, 8) or not steps or not finished
+            or launches != expected or not os.path.isfile(model_pt)):
+        raise AssertionError("the transduction CLI's epoch failed")
+
+    # evaluate: model.pt twice, then alone
+    groups = TransductionTrainer(data_cfg=cfg, device="cuda").eval_groups(
+        testset)
+    silent_groups = sum(any(testset[i]["silent"] for i in g)
+                        for g in groups)
+    results = {}
+    for n in (2, 1):
+        out_dir = os.path.join(work, f"eval{n}")
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, acc, confusion = evaluate.main(
+            data + ["--output_directory", out_dir, "--models",
+                    *[model_pt] * n])
+        results[n] = (loss, acc, confusion, read_launches(),
+                      time.perf_counter() - t0,
+                      log_lines(os.path.join(out_dir, "eval_log.txt"),
+                                "loss: "))
+        add(results[n][3])
+    (loss, acc, confusion, launches, secs, line), single = \
+        results[2], results[1]
+    expected = launch_counts(rel_attention_fwd=2 * layers * len(groups),
+                             dtw_align=silent_groups)
+    rel = abs(loss - single[0]) / abs(single[0])
+    ok = (np.isfinite(loss) and rel <= ENSEMBLE_RTOL and acc == single[1]
+          and np.array_equal(confusion, single[2]) and launches == expected
+          and single[3] == launch_counts(
+              rel_attention_fwd=layers * len(groups), dtw_align=silent_groups)
+          and line)
+    log(f"[disk] evaluate --models model.pt model.pt on {len(testset)} test "
+        f"utterances in {len(groups)} eval group(s), {secs:.2f} s: {line}; "
+        f"alone: loss {single[0]:.6f}, accuracy {single[1]:.6f}; loss rel "
+        f"diff {rel:.3g} (tolerance {ENSEMBLE_RTOL}), accuracy and confusion "
+        f"equal: {acc == single[1] and np.array_equal(confusion, single[2])}"
+        f"; launches {launches} (expected {expected}: 2 x {layers} forward "
+        f"attention a group), alone {single[3]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the 2-model ensemble of one model.pt differs "
+                             "from the model alone, or launched otherwise")
+
+    # the recognition CLI: one epoch, then --evaluate_saved on its model.pt
+    lm_path = os.path.join(work, "lm.arpa")
+    write_bigram_arpa([trainset.example_meta(i)["text"]
+                       for i in range(len(trainset))], lm_path)
+    rec_run = os.path.join(work, "recognition")
+    steps = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for name in ("train_step_ids", "train_step"):
+            stack.enter_context(counted(RecognitionTrainer, name, steps,
+                                        lambda *args: False))
+        rec = recognition_model.main(data + [
+            "--output_directory", rec_run, "--epochs", "1", "--lm_path",
+            lm_path])
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    launches = read_launches()
+    add(launches)
+    updates = rec.optimizer.count
+    del rec
+    torch.cuda.empty_cache()
+    expected = launch_counts(
+        rel_attention_fwd=layers * (len(steps) + len(devset)),
+        rel_attention_bwd=layers * len(steps), ctc=len(steps),
+        ctc_bwd=len(steps))
+    finished = log_lines(os.path.join(rec_run, "log.txt"), "finished epoch")
+    log(f"[disk] recognition CLI, 1 epoch: {len(steps)} micro-step(s), "
+        f"{updates} update(s), {len(devset)} validation utterances in "
+        f"{rec_s:.2f} s; {finished}; launches {launches} (expected "
+        f"{expected}: one CTC forward and backward a micro-step)")
+    if not steps or not finished or launches != expected:
+        raise AssertionError("the recognition CLI's epoch failed")
+    reset_launches()
+    t0 = time.perf_counter()
+    wer = recognition_model.main(data + [
+        "--evaluate_saved", os.path.join(rec_run, "model.pt"),
+        "--lm_path", lm_path, "--output_directory", rec_run])
+    launches = read_launches()
+    add(launches)
+    expected = launch_counts(rel_attention_fwd=layers * len(testset))
+    log(f"[disk] recognition --evaluate_saved model.pt: test WER {wer} over "
+        f"{len(testset)} utterances in {time.perf_counter() - t0:.2f} s; "
+        f"launches {launches} (expected {expected})")
+    if not np.isfinite(wer) or launches != expected:
+        raise AssertionError("--evaluate_saved failed")
+    log(f"[disk] phase wall time {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {total}")
+    return total
+
+
+def time_ctc(card, rec_ctc, errs):
+    """Phase 8, CTC: ms a launch of the forward and of the backward on a
+    recognition micro-step's own inputs (captured in phase 6), against the
+    bound, the plain version and ``F.ctc_loss`` forward and backward on the
+    same rows. Returns the JSON entry's numbers."""
+    import torch
+    import torch.nn.functional as F
+    from silent_speech_tpu_torch.ops.ctc import ctc_nll, ctc_nll_plain
+
+    lp, utt_len, labels, text_len, blank = rec_ctc
+    u, t, k = lp.shape
+    s = labels.shape[1]
+    weights = torch.ones(u, device="cuda")
+
+    def forward():
+        return ctc_nll(lp, utt_len, labels, text_len, blank)
+
+    # the backward alone: one graph's backward, run again and again
+    lp_bwd = lp.detach().clone().requires_grad_()
+    graph = ctc_nll(lp_bwd, utt_len, labels, text_len, blank)
+
+    def backward():
+        return torch.autograd.grad(graph, lp_bwd, weights,
+                                   retain_graph=True)[0]
+
+    def both():
+        return ctc_run(ctc_nll, lp, utt_len, labels, text_len, weights)
+
+    # queued behind a sleeping kernel, so that the host's time a call does
+    # not show; back to back for the time with it
+    fwd_ms, bwd_ms, ms = (queued_ms(f) for f in (forward, backward, both))
+    host_ms = cuda_time_ms(both, iters=20)
+    # the recursions alone; the backward's fixed-order gradient sum is the
+    # rest of its queued time
+    kernel_ms = {name: device_ms_per_launch(fn, f"{name}_kernel")
+                 for name, fn in (("ctc_fwd", forward), ("ctc_bwd", backward))}
+    # no warm-up: the plain version ran at this shape in phase 2
+    plain_ms = cuda_time_ms(lambda: ctc_run(ctc_nll_plain, lp, utt_len,
+                                            labels, text_len, weights),
+                            iters=1, warmup=0)
+    real = (text_len > 0).nonzero()[:, 0]
+    x = lp[real].detach().clone().requires_grad_()
+    lib_targets = labels[real].clamp_min(0)
+
+    def library():
+        nll = F.ctc_loss(x.transpose(0, 1), lib_targets,
+                         utt_len[real].long(), text_len[real].long(),
+                         blank=blank, reduction="none")
+        return nll, torch.autograd.grad(nll.sum(), x)[0]
+
+    lib_nll, _ = library()
+    ours = ctc_nll(lp, utt_len, labels, text_len, blank)[real]
+    lib_rel = ((lib_nll - ours).abs() / ours.abs()).max().item()
+    library_ms = queued_ms(library)
+    library_host_ms = cuda_time_ms(library, iters=20)
+    bound_ms, bound_by, bound_bytes = ctc_bound(lp, utt_len, labels,
+                                                text_len)
+    frames = int(utt_len.max())
+    log(f"[kernel] ctc at a recognition micro-step's inputs: U={u} rows "
+        f"({len(real)} with text), T={t}, S={s}, K={k}, longest "
+        f"{frames} frames; F.ctc_loss on the {len(real)} rows with text "
+        f"agrees with the kernel's NLL to {lib_rel:.3g} relative")
+    log(f"[time] {card} | ctc (csrc/ctc.cu) U={u} T={t} S={s} K={k}, "
+        f"device time a call (queued): forward {fwd_ms:.4f} ms (the "
+        f"wrapper's int32 casts included), backward {bwd_ms:.4f} ms, "
+        f"forward and backward through autograd {ms:.4f} ms ({host_ms:.4f} "
+        f"ms back to back, the host's time included); by kernel (profiler) "
+        + ", ".join(f"{n} {fmt_ms(v)}" for n, v in kernel_ms.items())
+        + f"; plain {plain_ms:.2f} ms; F.ctc_loss forward and backward on "
+        f"the {len(real)} rows with text {library_ms:.4f} ms "
+        f"({library_host_ms:.4f} back to back); bound {bound_ms:.5f} ms "
+        f"({bound_by}: {bound_bytes} bytes, the live frames' log-probs in "
+        f"and the dense gradient out), {bound_ms / ms:.2%} of bound; what "
+        f"limits it is the "
+        f"chain of {frames} dependent frames each way: "
+        f"{fwd_ms * 1e6 / frames:.0f} ns a frame forward, "
+        f"{bwd_ms * 1e6 / frames:.0f} ns backward")
+    return {"shape": f"U={u} ({len(real)} with text) T={t} S={s} K={k} "
+                     f"f32, longest {frames} frames",
+            "max_abs_err": max(errs[("ctc", False)], errs[("ctc", True)]),
+            "ms": ms, "ms_forward": fwd_ms, "ms_backward": bwd_ms,
+            "ms_back_to_back": host_ms,
+            "device_ms_by_kernel": kernel_ms,
+            "ns_per_frame_forward": fwd_ms * 1e6 / frames,
+            "ns_per_frame_backward": bwd_ms * 1e6 / frames,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_ms_back_to_back": library_host_ms,
+            "library_rows": len(real)}
+
+
+def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
+                 rec_ctc):
+    """Phase 8, kernels: ms per launch at the main path's shapes, against
     the bound and the plain version. Returns the kernels JSON entries."""
     import torch
     from silent_speech_tpu_torch.ops.dtw import (
@@ -1697,6 +2183,14 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs):
                                     else dp_dev_ms * 1e6 / diagonals),
          "plain_ms": dp_plain, "bound_ms": dtw_b[0],
          "bound_by": dtw_b[1], "library_ms": None},
+        # not a Pallas kernel: the JAX package's CTC is optax.ctc_loss
+        # under XLA; this kernel repairs the port's (ROADMAP.md faults 8, 11)
+        {"name": "ctc", "route": "cuda",
+         "source": "silent_speech_tpu_torch/csrc/ctc.cu",
+         "replaces": "silent_speech_tpu/train/losses.py:233",
+         "pallas": False, **launches("ctc"),
+         "launches_backward": launches("ctc_bwd")["launches"],
+         **time_ctc(card, rec_ctc, errs)},
     ]
 
 
@@ -1714,6 +2208,7 @@ def main() -> int:
         raise RuntimeError(f"silent_speech_tpu_torch resolved outside the "
                            f"checkout: {port.__file__}")
     from silent_speech_tpu_torch.ops import build
+    from silent_speech_tpu_torch.utils import native
     from silent_speech_tpu_torch.utils.device import card_info
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1721,19 +2216,35 @@ def main() -> int:
     card = card_info("cuda")
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):
+        """Record the wall seconds since the last phase ended."""
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
 
     # 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    built = build.build()
-    log(f"[build] {len(built)} kernel(s) in {time.perf_counter() - t0:.2f} s")
+    # the native beam search (g++) builds beside the kernels (nvcc)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        beam = pool.submit(native.build)
+        built = build.build()
+        log(f"[build] {len(built)} kernel(s) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        beam_lib = beam.result()
+    log(f"[build] native beam search {os.path.basename(beam_lib)}: "
+        f"{time.perf_counter() - t0:.2f} s with the kernels")
     for name, (secs, msgs) in built.items():
         log(f"[build] {name}: {secs:.2f} s")
         for line in msgs.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+    lap("build")
 
     # 2. kernel vs plain ---------------------------------------------------
     errs = check_kernels()
+    lap("kernels")
 
     # 3. serve -------------------------------------------------------------
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -1743,9 +2254,11 @@ def main() -> int:
         serve_launches = serve(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    lap("serve")
 
     # 4. train -------------------------------------------------------------
     train_launches, _, dtw_inputs = train(card)
+    lap("train")
 
     # 5. the training run --------------------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_fit_",
@@ -1755,24 +2268,38 @@ def main() -> int:
                                                                    work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    lap("fit")
 
     # 6. recognition -------------------------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_rec_",
                             dir=os.path.join(ROOT, "build"))
     try:
-        rec_launches, rec_serve_launches = recognition_run(card, work)
+        rec_launches, rec_serve_launches, rec_ctc = recognition_run(card,
+                                                                    work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    lap("recognition")
 
-    # 7. kernel timings ----------------------------------------------------
+    # 7. the CLIs from disk ------------------------------------------------
+    work = tempfile.mkdtemp(prefix="chip_smoke_disk_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        disk_launches = disk_run(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lap("disk")
+
+    # 8. kernel timings ----------------------------------------------------
     kernels = time_kernels(
         card, {"serve": serve_launches, "train": train_launches,
                "fit": fit_launches, "aligned_prediction": aligned_launches,
                "recognition_fit": rec_launches,
-               "recognition_serve": rec_serve_launches},
-        errs, dtw_inputs, aligned_inputs)
+               "recognition_serve": rec_serve_launches,
+               "disk": disk_launches},
+        errs, dtw_inputs, aligned_inputs, rec_ctc)
+    lap("timings")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the card was "
-        f"found")
+        f"found; wall seconds by phase {laps}")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

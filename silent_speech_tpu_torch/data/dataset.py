@@ -19,8 +19,18 @@ Own copy of the JAX package's ``silent_speech_tpu/data/dataset.py``
 - examples are shuffled with seed 0.
 
 Examples are cached in memory, and the sampler's metadata is read once.
-The volume renormalization option of the JAX loader is left out: nothing
-on the training path sets it.
+``make_normalizers_file`` writes ``normalizers.pkl`` from the training
+split. Run as a module, it is the input pipeline's smoke test (reference
+``read_emg.py:311-315``)::
+
+    python -m silent_speech_tpu_torch.data.dataset \\
+        --silent_data_directories DIR --voiced_data_directories DIR \\
+        --testset_file F --text_align_directory DIR --normalizers_file F \\
+        [--make_normalizers] [--smoke_items N]
+
+It loads ``N`` training examples (1000 by default) and prints the time,
+or with ``--make_normalizers`` writes the normalizers and exits. It
+touches no device.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..config import DataConfig
+from ..dsp.audio_utils import normalize_volume
 from ..dsp.emg_features import get_emg_features
 from ..dsp.filters import clean_emg
 from ..dsp.mel import MelConfig, log_mel_spectrogram
@@ -43,7 +54,7 @@ from ..dsp.resample import resample_poly_audio, subsample
 from ..phonemes import SIL_ID, read_phonemes
 from ..text import TextTransform
 from ..utils.audio_io import read_audio
-from .normalizers import load_normalizers
+from .normalizers import load_normalizers, make_normalizers, save_normalizers
 
 RAW_RATE = 689.06      # raw-EMG model input rate (read_emg.py:70)
 FEAT_RATE = 516.79     # featurization input rate (read_emg.py:71)
@@ -58,10 +69,14 @@ class SessionDir:
     exclude_from_testset: bool = False
 
 
-def load_audio_features(path: str, max_frames: Optional[int] = None
-                        ) -> np.ndarray:
-    """flac/wav → (T, 80) HiFi-GAN log-mel (``data_utils.py:64-83``)."""
+def load_audio_features(path: str, max_frames: Optional[int] = None,
+                        renormalize_volume: bool = False) -> np.ndarray:
+    """flac/wav → (T, 80) HiFi-GAN log-mel (``data_utils.py:64-83``);
+    ``renormalize_volume`` scales the waveform to the reference's peak
+    frame RMS first (``normalize_volume``)."""
     audio, rate = read_audio(path)
+    if renormalize_volume:
+        audio = normalize_volume(audio)
     if rate != 22050:
         audio = resample_poly_audio(audio, rate, 22050)
     audio = np.clip(audio, -1, 1)
@@ -353,3 +368,48 @@ class ExampleList:
 
     def subset(self, fraction: float) -> "ExampleList":
         return ExampleList(self.examples[: int(fraction * len(self))])
+
+
+def make_normalizers_file(cfg: DataConfig, n_samples: int = 51):
+    """Build the normalizers from the training split's first ``n_samples``
+    examples, pickle them to the config's ``normalizers_file`` (reference
+    ``read_emg.py:298-309``) and return them."""
+    dataset = EMGDataset(cfg, no_normalizers=True)
+    mfcc_norm, emg_norm = make_normalizers(dataset, n_samples)
+    save_normalizers(cfg.normalizers_file, mfcc_norm, emg_norm)
+    return mfcc_norm, emg_norm
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """The smoke run: the number of examples loaded."""
+    import argparse
+    import functools
+    import time
+
+    from ..flags import _bool, add_data_flags, add_flag, data_config_from_args
+
+    ap = argparse.ArgumentParser(description="Load the training split "
+                                 "(PyTorch port's input pipeline smoke "
+                                 "test), or build its normalizers.")
+    flag = functools.partial(add_flag, ap)
+    add_data_flags(flag)
+    flag("make_normalizers", False, "build normalizers.pkl and exit", _bool)
+    flag("smoke_items", 1000, "items to load")
+    args = ap.parse_args(argv)
+    cfg = data_config_from_args(args)
+    if args.make_normalizers:
+        make_normalizers_file(cfg)
+        print(f"wrote {cfg.normalizers_file}")
+        return 0
+    d = EMGDataset(cfg)
+    t0 = time.time()
+    n = min(args.smoke_items, len(d))
+    for i in range(n):
+        d[i]
+    print(f"loaded {n} examples in {time.time() - t0:.1f}s "
+          f"({len(d)} total)")
+    return n
+
+
+if __name__ == "__main__":
+    main()

@@ -59,3 +59,18 @@ def save_normalizers(path: str, mfcc_norm: FeatureNormalizer,
     with open(path, "wb") as f:
         pickle.dump((mfcc_norm, emg_norm), f)
 
+
+def make_normalizers(dataset, n_samples: int = 51
+                     ) -> Tuple[FeatureNormalizer, FeatureNormalizer]:
+    """Normalizers from the first ``n_samples`` examples of ``dataset``
+    (reference ``read_emg.py:298-309``): the mfcc statistics share one
+    scalar std, the EMG ones are per dimension."""
+    mfcc_samples: List[np.ndarray] = []
+    emg_samples: List[np.ndarray] = []
+    for d in dataset:
+        mfcc_samples.append(np.asarray(d["audio_features"]))
+        emg_samples.append(np.asarray(d["emg"]))
+        if len(emg_samples) >= n_samples:
+            break
+    return (FeatureNormalizer(mfcc_samples, share_scale=True),
+            FeatureNormalizer(emg_samples, share_scale=False))

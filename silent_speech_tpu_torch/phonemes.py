@@ -6,7 +6,8 @@ self-contained TextGrid parser (long and short text formats) in place of
 the reference's ``praat-textgrids``, and ``read_phonemes`` with the
 reference's frame mapping (``data_utils.py:223-241``): interval bounds to
 frames at 86.133 a second (22050/256), stress digits stripped, ``''``,
-``sp`` and ``spn`` as ``sil``.
+``sp`` and ``spn`` as ``sil``; and the evaluation's report of the most
+confused phoneme pairs (``print_confusion``).
 """
 
 from __future__ import annotations
@@ -167,3 +168,35 @@ def read_phonemes(textgrid_path: str, max_len: Optional[int] = None,
                              f'fewer than the {max_len} asked for')
         phone_ids = phone_ids[:max_len]
     return phone_ids
+
+
+def confusion_lines(confusion_mat: np.ndarray, n: int = 10) -> List[str]:
+    """The report of ``print_confusion``: a header, then the top-n
+    symmetric phoneme confusion pairs, each with the pair's accuracy
+    (``data_utils.py:204-221``)."""
+    target_counts = confusion_mat.sum(0) + 1e-4
+    aslist = []
+    for p1 in range(NUM_PHONES):
+        for p2 in range(p1):
+            aslist.append((
+                (confusion_mat[p1, p2] + confusion_mat[p2, p1])
+                / (target_counts[p1] + target_counts[p2]),
+                p1, p2,
+            ))
+    aslist.sort()
+    aslist = aslist[-n:]
+    lines = ['Common confusions (confusion, accuracy)']
+    for v, p1, p2 in aslist:
+        acc = (confusion_mat[p1, p1] + confusion_mat[p2, p2]) / (
+            target_counts[p1] + target_counts[p2])
+        lines.append(
+            f'{PHONEME_INVENTORY[p1]} {PHONEME_INVENTORY[p2]} '
+            f'{v * 100:.1f} {acc * 100:.1f}')
+    return lines
+
+
+def print_confusion(confusion_mat: np.ndarray, n: int = 10) -> List[str]:
+    """Print ``confusion_lines`` and return them."""
+    lines = confusion_lines(confusion_mat, n)
+    print('\n'.join(lines))
+    return lines

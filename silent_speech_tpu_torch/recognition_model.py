@@ -29,7 +29,7 @@ import os
 from typing import Optional, Sequence
 
 from .config import DataConfig, ModelConfig, RecognitionTrainConfig
-from .transduction_model import _bool, _list, add_flag
+from .flags import _bool, add_data_flags, add_flag, data_config_from_args
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,17 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     flag("output_directory", r.output_directory, "output directory")
     flag("evaluate_saved", None, "run evaluation on given model file", str)
     flag("debug", r.debug, "debug: run on the CPU", _bool)
-    # read_emg.py:21-25, data_utils.py:15
-    flag("remove_channels", d.remove_channels, "channels to remove", _list)
-    flag("silent_data_directories", d.silent_data_directories,
-         "silent data locations", _list)
-    flag("voiced_data_directories", d.voiced_data_directories,
-         "voiced data locations", _list)
-    flag("testset_file", d.testset_file, "file with testset indices")
-    flag("text_align_directory", d.text_align_directory,
-         "alignment file directory")
-    flag("normalizers_file", d.normalizers_file,
-         "pickled feature normalizers")
+    add_data_flags(flag)
     # the JAX package's additions that the port shares
     flag("chunk_bucket", d.chunk_bucket,
          "pad packed batches to a multiple of this many chunks")
@@ -97,14 +87,8 @@ def configs_from_args(args):
     model = ModelConfig(model_size=args.model_size,
                         num_layers=args.num_layers, dropout=args.dropout,
                         compute_dtype=args.compute_dtype)
-    data = DataConfig(
-        remove_channels=[int(c) for c in args.remove_channels],
-        silent_data_directories=list(args.silent_data_directories),
-        voiced_data_directories=list(args.voiced_data_directories),
-        testset_file=args.testset_file,
-        text_align_directory=args.text_align_directory,
-        normalizers_file=args.normalizers_file,
-        chunk_bucket=args.chunk_bucket, fixed_shapes=args.fixed_shapes,
+    data = data_config_from_args(
+        args, chunk_bucket=args.chunk_bucket, fixed_shapes=args.fixed_shapes,
         t_cap=args.t_cap, utt_cap=args.utt_cap)
     train = RecognitionTrainConfig(
         batch_size=args.batch_size, epochs=args.epochs,

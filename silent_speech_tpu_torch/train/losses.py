@@ -16,8 +16,9 @@ Transduction:
   summed phoneme cross-entropy.
 - batch loss = Σ utterance losses / Σ target lengths.
 
-Recognition: CTC of each utterance's text under its frames' log-probs,
-divided by the text's length, averaged over the real utterances.
+Recognition: CTC of each utterance's text under its frames' log-probs
+(optax's clamped lattice, ``ops/ctc.py``), divided by the text's length,
+averaged over the real utterances.
 
 ``matmul_dtype`` sets the dtype of the interior (the gathered views, the
 log-softmax, the distances and the stored cost matrix); every sum over
@@ -33,6 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.ctc import ctc_nll
 from ..ops.dtw import dtw_align_batch
 from ..phonemes import NUM_PHONES
 
@@ -178,22 +180,17 @@ def ctc_loss(log_probs: torch.Tensor, batch, blank_id: int) -> torch.Tensor:
     ``batch`` carries ``utt_gather_idx``, ``utt_len``, ``text_int`` (U, S)
     padded with −1 and ``text_len``. As in the JAX package, each
     utterance's frames are gathered, log-softmaxed again in float32 (as
-    ``optax.ctc_loss`` does), and its CTC negative log-likelihood is
+    ``optax.ctc_loss`` does), and its CTC negative log-likelihood on
+    optax's lattice (``ops/ctc.py``: the port's kernel on the card) is
     divided by ``max(text_len, 1)``; the mean runs over the utterances
-    with text (padding rows have none).
-
-    An utterance whose text cannot be aligned to its frames (more labels,
-    with the blanks repeats need, than frames) gives ``inf`` here, where
-    ``optax.ctc_loss`` gives a large finite value (its log-epsilon clamp).
+    with text (padding rows have none). A text that cannot be aligned to
+    its frames gives optax's finite log-epsilon sentinel (~1e5), as in
+    JAX.
     """
     utt = gather_utterances(log_probs.float(), batch.utt_gather_idx)
     utt = torch.log_softmax(utt, dim=-1)                      # (U, T, K)
     text_len = batch.text_len.long()
-    # padding rows take one frame, so that every row is well defined; the
-    # mask below drops them
-    nll = F.ctc_loss(utt.transpose(0, 1), batch.text_int.long().clamp_min(0),
-                     batch.utt_len.long().clamp_min(1), text_len,
-                     blank=blank_id, reduction="none")
+    nll = ctc_nll(utt, batch.utt_len, batch.text_int, text_len, blank_id)
     real = text_len > 0
     per_utt = torch.where(real, nll / text_len.clamp_min(1), 0.0)
     return per_utt.sum() / real.sum().clamp_min(1)

@@ -8,7 +8,9 @@ characters and the CTC blank (37). A micro-step takes a batch packed on
 the host (``train_step``) or the ids of utterances in a corpus on the
 device (``train_step_ids``), runs the training forward (shift and dropout,
 no length mask, so the attention kernel sees whole chunks), the CTC loss
-and the backward, and folds the gradient into the optimizer's accumulator;
+(the port's kernel on optax's lattice) and the backward, with cuDNN's
+deterministic convolutions, so a micro-step's gradient is bit-equal
+between calls; and folds the gradient into the optimizer's accumulator;
 every ``grad_accum``-th micro-step updates the weights
 (``optax.MultiSteps`` in JAX). Warmup counts micro-steps, and a milestone
 schedule halves the learning rate at epochs 125, 150 and 175. ``fit``
@@ -32,6 +34,7 @@ explicit CPU ``torch.Generator``s. It runs on ``cuda`` unless given
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -62,6 +65,20 @@ TEXT_CAP = 128   # characters an utterance may have on the device path
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic convolution algorithms inside, forward and
+    backward: its default weight-gradient algorithms sum in an order that
+    changes between calls. With them and the port's CTC, two micro-steps
+    from one state on one batch give bit-equal gradients, as JAX's do."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
 
 
 class RecognitionTrainer:
@@ -146,9 +163,12 @@ class RecognitionTrainer:
             raise RuntimeError("call init_state() before a training step")
         for p in self.model.parameters():
             p.grad = None
-        logits = self.model(db.raw_emg, train=True, generator=self.generator)
-        loss = ctc_loss(torch.log_softmax(logits, dim=-1), db, self.blank_id)
-        loss.backward()
+        with deterministic_cudnn():
+            logits = self.model(db.raw_emg, train=True,
+                                generator=self.generator)
+            loss = ctc_loss(torch.log_softmax(logits, dim=-1), db,
+                            self.blank_id)
+            loss.backward()
         self.optimizer.step(lr)
         return loss.detach()
 

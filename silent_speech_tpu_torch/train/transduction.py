@@ -24,7 +24,8 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Iterable, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, Iterable, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -45,7 +46,11 @@ from .losses import TransductionLossOut, transduction_loss
 from .schedule import ReduceLROnPlateau, warmup_lr
 from .state import FusedAdamW
 
-__all__ = ["DeviceBatch", "TransductionTrainer", "upload"]
+__all__ = ["DeviceBatch", "TransductionTrainer", "aligned_prediction",
+           "upload"]
+
+# an eval forward: raw EMG (B, 8T, C) → (mel (B, T, 80), phone logits)
+Forward = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -108,9 +113,13 @@ class TransductionTrainer:
 
     # ---------------- steps -------------------------------------------
     def _loss(self, db: DeviceBatch, n_silent: Optional[int], train: bool,
-              **kwargs) -> TransductionLossOut:
-        pred, phone = self.model(db.raw_emg, train=train,
-                                 generator=self.generator)
+              model: Optional[Forward] = None, **kwargs
+              ) -> TransductionLossOut:
+        if model is None:
+            pred, phone = self.model(db.raw_emg, train=train,
+                                     generator=self.generator)
+        else:
+            pred, phone = model(db.raw_emg)
         return transduction_loss(
             pred, phone, db, self.train_cfg.phoneme_loss_weight,
             n_silent=n_silent, **kwargs)
@@ -186,13 +195,15 @@ class TransductionTrainer:
         return self._step(db, n_silent, lr)
 
     @torch.no_grad()
-    def eval_step(self, batch: PackedBatch) -> TransductionLossOut:
+    def eval_step(self, batch: PackedBatch, model: Optional[Forward] = None
+                  ) -> TransductionLossOut:
         """The eval forward and the loss in float32, with the phoneme
-        confusion matrix."""
-        if self.model is None:
+        confusion matrix. ``model`` maps the raw EMG to the two heads in
+        place of the trainer's model (an ensemble's mean)."""
+        if self.model is None and model is None:
             raise RuntimeError("call init_state() before eval_step()")
         return self._loss(upload(batch, self.device), batch.num_silent,
-                          False, phoneme_eval=True)
+                          False, model, phoneme_eval=True)
 
     # ---------------- the training run --------------------------------
     def batches(self, dataset, max_len: Optional[int] = None,
@@ -313,18 +324,21 @@ class TransductionTrainer:
             groups.append(cur)
         return groups
 
-    def evaluate(self, dataset, batch_size: int = 32
+    def evaluate(self, dataset, batch_size: int = 32,
+                 model: Optional[Forward] = None
                  ) -> Tuple[float, float, np.ndarray]:
         """Validation loss, phoneme accuracy and the (48, 48) confusion
         matrix (reference ``transduction_model.py:33-55``); the sums stay
-        on the device until the last group."""
-        if self.model is None:
+        on the device until the last group. ``model`` as in
+        ``eval_step``."""
+        if self.model is None and model is None:
             raise RuntimeError("call fit() or init_state() first")
         losses, correct, total = [], 0, 0
         confusion = torch.zeros((NUM_PHONES, NUM_PHONES),
                                 device=self.device)
         for group in self.eval_groups(dataset, batch_size):
-            out = self.eval_step(self._pack([dataset[i] for i in group]))
+            out = self.eval_step(self._pack([dataset[i] for i in group]),
+                                 model)
             losses.append(out.loss)
             correct = correct + out.correct_phones
             total = total + out.total_length
@@ -365,20 +379,26 @@ class TransductionTrainer:
                                ) -> np.ndarray:
         """The prediction, DTW-warped onto the voiced target's timeline for
         a silent utterance, denormalized (reference
-        ``transduction_model.py:75-96``): the vocoder's fine-tuning data.
-        The f32 distances are the JAX trainer's numpy expression; the DTW
-        runs on the trainer's device (the kernel on the card, K = 1)."""
-        pred = self.predict(example)
-        if example["silent"]:
-            y = np.asarray(example["parallel_voiced_audio_features"])
-            costs = np.sqrt(np.clip(
-                (pred ** 2).sum(-1)[:, None] + (y ** 2).sum(-1)[None, :]
-                - 2 * pred @ y.T, 1e-12, None))
-            lengths = [torch.tensor([n], dtype=torch.int32,
-                                    device=self.device)
-                       for n in (y.shape[0], pred.shape[0])]
-            align, _ = dtw_align_batch(
-                torch.from_numpy(np.ascontiguousarray(costs.T)).to(
-                    self.device)[None], *lengths)
-            pred = pred[align[0].cpu().numpy()]
-        return audio_normalizer.inverse(pred)
+        ``transduction_model.py:75-96``): the vocoder's fine-tuning data."""
+        return aligned_prediction(self.predict(example), example,
+                                  audio_normalizer, self.device)
+
+
+def aligned_prediction(pred: np.ndarray, example: dict, audio_normalizer,
+                       device: torch.device) -> np.ndarray:
+    """``pred`` (T, 80), warped onto the voiced target of a silent
+    ``example`` by DTW (a voiced one is left as it is), then denormalized.
+    The f32 distances are the JAX trainer's numpy expression; the DTW runs
+    on ``device`` (the kernel on the card, K = 1)."""
+    if example["silent"]:
+        y = np.asarray(example["parallel_voiced_audio_features"])
+        costs = np.sqrt(np.clip(
+            (pred ** 2).sum(-1)[:, None] + (y ** 2).sum(-1)[None, :]
+            - 2 * pred @ y.T, 1e-12, None))
+        lengths = [torch.tensor([n], dtype=torch.int32, device=device)
+                   for n in (y.shape[0], pred.shape[0])]
+        align, _ = dtw_align_batch(
+            torch.from_numpy(np.ascontiguousarray(costs.T)).to(device)[None],
+            *lengths)
+        pred = pred[align[0].cpu().numpy()]
+    return audio_normalizer.inverse(pred)

@@ -26,33 +26,7 @@ import logging
 from typing import Optional, Sequence
 
 from .config import DataConfig, ModelConfig, TransductionTrainConfig
-
-
-def _bool(value: str) -> bool:
-    v = value.lower()
-    if v in ("1", "true", "t", "yes", "y"):
-        return True
-    if v in ("0", "false", "f", "no", "n"):
-        return False
-    raise argparse.ArgumentTypeError(f"not a boolean: {value!r}")
-
-
-def _list(value: str):
-    return [v for v in value.split(",") if v]
-
-
-def add_flag(ap: argparse.ArgumentParser, name: str, default, help_: str,
-             type_=None) -> None:
-    """``--name`` with the JAX CLI's forms: a boolean also takes
-    ``--noname`` and ``--name=false``."""
-    if type_ is _bool:
-        ap.add_argument(f"--{name}", nargs="?", const=True,
-                        default=default, type=_bool, help=help_)
-        ap.add_argument(f"--no{name}", dest=name, action="store_false",
-                        help=argparse.SUPPRESS)
-    else:
-        ap.add_argument(f"--{name}", default=default,
-                        type=type_ or type(default), help=help_)
+from .flags import _bool, add_data_flags, add_flag, data_config_from_args
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,17 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
          "weight of auxiliary phoneme loss")
     flag("l2", t.l2, "weight decay")
     flag("output_directory", t.output_directory, "output directory")
-    # read_emg.py:21-25, data_utils.py:15
-    flag("remove_channels", d.remove_channels, "channels to remove", _list)
-    flag("silent_data_directories", d.silent_data_directories,
-         "silent data locations", _list)
-    flag("voiced_data_directories", d.voiced_data_directories,
-         "voiced data locations", _list)
-    flag("testset_file", d.testset_file, "file with testset indices")
-    flag("text_align_directory", d.text_align_directory,
-         "alignment file directory")
-    flag("normalizers_file", d.normalizers_file,
-         "pickled feature normalizers")
+    add_data_flags(flag)
     # the JAX package's additions that the port shares
     flag("chunk_bucket", d.chunk_bucket,
          "pad packed batches to a multiple of this many chunks")
@@ -115,14 +79,8 @@ def configs_from_args(args):
     model = ModelConfig(model_size=args.model_size,
                         num_layers=args.num_layers, dropout=args.dropout,
                         compute_dtype=args.compute_dtype)
-    data = DataConfig(
-        remove_channels=[int(c) for c in args.remove_channels],
-        silent_data_directories=list(args.silent_data_directories),
-        voiced_data_directories=list(args.voiced_data_directories),
-        testset_file=args.testset_file,
-        text_align_directory=args.text_align_directory,
-        normalizers_file=args.normalizers_file,
-        chunk_bucket=args.chunk_bucket, fixed_shapes=args.fixed_shapes,
+    data = data_config_from_args(
+        args, chunk_bucket=args.chunk_bucket, fixed_shapes=args.fixed_shapes,
         t_cap=args.t_cap, utt_cap=args.utt_cap)
     train = TransductionTrainConfig(
         epochs=args.epochs,

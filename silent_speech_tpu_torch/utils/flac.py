@@ -1,12 +1,15 @@
-"""FLAC decoding in pure Python.
+"""FLAC decoding and encoding in pure Python.
 
-Own copy of the decoder of the JAX package's
-``silent_speech_tpu/utils/flac.py``. The reference dataset stores audio as
+Own copy of the JAX package's ``silent_speech_tpu/utils/flac.py``. The reference dataset stores audio as
 ``{i}_audio_clean.flac`` read through libsndfile (``data_utils.py:64-65``);
 the port carries its own decoder. It covers what standard encoders write:
 constant, verbatim, fixed and LPC subframes, Rice and Rice2 residual
 partitions, left/right/mid-side stereo, 8 to 24 bits. Samples come back as
 float64 in [-1, 1), (frames,) for mono and (frames, channels) otherwise.
+``write_flac`` encodes with fixed order-2 prediction and one Rice
+partition (verbatim for blocks of 4 samples or fewer), byte for byte as
+the JAX package's encoder does; the synthetic corpus writes its audio
+with it.
 """
 
 from __future__ import annotations
@@ -297,3 +300,167 @@ def read_flac(path: str) -> Tuple[np.ndarray, int]:
         return read_flac_bytes(data)
     except IndexError as e:
         raise ValueError(f"{path}: truncated FLAC stream") from e
+
+
+# ---------------------------------------------------------------------------
+# Encoder (verbatim / fixed-order-2 subframes)
+# ---------------------------------------------------------------------------
+
+class BitWriter:
+    def __init__(self):
+        self.bytes = bytearray()
+        self.acc = 0
+        self.nbits = 0
+
+    def write_bits(self, value: int, n: int) -> None:
+        self.acc = (self.acc << n) | (value & ((1 << n) - 1))
+        self.nbits += n
+        while self.nbits >= 8:
+            self.nbits -= 8
+            self.bytes.append((self.acc >> self.nbits) & 0xFF)
+        self.acc &= (1 << self.nbits) - 1
+
+    def write_unary(self, value: int) -> None:
+        while value >= 32:
+            self.write_bits(0, 32)
+            value -= 32
+        self.write_bits(1, value + 1)
+
+    def align(self) -> None:
+        if self.nbits:
+            self.write_bits(0, 8 - self.nbits)
+
+    def getvalue(self) -> bytes:
+        if self.nbits:
+            raise ValueError(f"{self.nbits} bits left over: align() first")
+        return bytes(self.bytes)
+
+
+def _crc8(data: bytes) -> int:
+    crc = 0
+    for b in data:
+        crc ^= b
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x07) & 0xFF if crc & 0x80 else (crc << 1) & 0xFF
+    return crc
+
+
+def _crc16(data: bytes) -> int:
+    crc = 0
+    for b in data:
+        crc ^= b << 8
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x8005) & 0xFFFF if crc & 0x8000 \
+                else (crc << 1) & 0xFFFF
+    return crc
+
+
+def _utf8_number(value: int) -> bytes:
+    """UTF-8-style number coding used in FLAC frame headers.
+
+    A k-byte coding (k >= 2) holds 7-k lead bits + 6 bits per continuation
+    byte = 1 + 5k value bits.
+    """
+    if value < 0x80:
+        return bytes([value])
+    k = 2
+    while value >= (1 << (1 + 5 * k)) and k < 7:
+        k += 1
+    out = [((0xFF << (8 - k)) & 0xFF) | (value >> (6 * (k - 1)))]
+    for i in range(k - 2, -1, -1):
+        out.append(0x80 | ((value >> (6 * i)) & 0x3F))
+    return bytes(out)
+
+
+def _write_rice(bw: BitWriter, residual: np.ndarray) -> None:
+    """Single-partition Rice coding with a simple parameter estimate."""
+    zz = np.where(residual >= 0, residual.astype(np.int64) * 2,
+                  -2 * residual.astype(np.int64) - 1)
+    mean = max(float(zz.mean()), 0.0)
+    param = 0
+    while (1 << (param + 1)) < mean + 1 and param < 14:
+        param += 1
+    bw.write_bits(0, 2)   # rice method 0
+    bw.write_bits(0, 4)   # partition order 0
+    bw.write_bits(param, 4)
+    for v in zz.tolist():
+        bw.write_unary(v >> param)
+        if param:
+            bw.write_bits(v & ((1 << param) - 1), param)
+
+
+def write_flac(path: str, audio: np.ndarray, sample_rate: int,
+               bps: int = 16, blocksize: int = 4096) -> None:
+    """Encode float or int16 audio to FLAC (fixed order-2 prediction)."""
+    audio = np.asarray(audio)
+    if audio.ndim == 1:
+        audio = audio[:, None]
+    if audio.dtype.kind == "f":
+        pcm = np.clip(audio, -1.0, 1.0)
+        pcm = np.round(pcm * ((1 << (bps - 1)) - 1)).astype(np.int64)
+    else:
+        pcm = audio.astype(np.int64)
+    n_samples, n_channels = pcm.shape
+
+    out = bytearray(b"fLaC")
+    # STREAMINFO
+    si = BitWriter()
+    si.write_bits(blocksize, 16)
+    si.write_bits(blocksize, 16)
+    si.write_bits(0, 24)
+    si.write_bits(0, 24)
+    si.write_bits(sample_rate, 20)
+    si.write_bits(n_channels - 1, 3)
+    si.write_bits(bps - 1, 5)
+    si.write_bits(n_samples, 36)
+    body = si.getvalue() + b"\x00" * 16  # MD5 unset
+    out.append(0x80 | 0x00)  # last block, STREAMINFO
+    out += len(body).to_bytes(3, "big")
+    out += body
+
+    frame_no = 0
+    for start in range(0, n_samples, blocksize):
+        block = pcm[start: start + blocksize]
+        bs = block.shape[0]
+        bw = BitWriter()
+        bw.write_bits(0b11111111111110, 14)
+        bw.write_bits(0, 1)
+        bw.write_bits(0, 1)  # fixed blocksize stream
+        bw.write_bits(7, 4)  # blocksize: 16-bit value follows
+        bw.write_bits(0, 4)  # sample rate: from STREAMINFO
+        bw.write_bits(n_channels - 1, 4)
+        ss_code = {8: 1, 12: 2, 16: 4, 20: 5, 24: 6}[bps]
+        bw.write_bits(ss_code, 3)
+        bw.write_bits(0, 1)
+        for b in _utf8_number(frame_no):
+            bw.write_bits(b, 8)
+        bw.write_bits(bs - 1, 16)
+        bw.align()
+        header = bw.getvalue()
+        header += bytes([_crc8(header)])
+
+        body_bw = BitWriter()
+        for ch in range(n_channels):
+            sig = block[:, ch]
+            if bs > 4:
+                body_bw.write_bits(0, 1)
+                body_bw.write_bits(8 + 2, 6)  # FIXED order 2
+                body_bw.write_bits(0, 1)      # no wasted bits
+                for w in sig[:2].tolist():
+                    body_bw.write_bits(int(w), bps)
+                residual = sig[2:] - (2 * sig[1:-1] - sig[:-2])
+                _write_rice(body_bw, residual)
+            else:
+                body_bw.write_bits(0, 1)
+                body_bw.write_bits(1, 6)  # VERBATIM
+                body_bw.write_bits(0, 1)
+                for v in sig.tolist():
+                    body_bw.write_bits(int(v), bps)
+        body_bw.align()
+        frame = header + body_bw.getvalue()
+        frame += _crc16(frame).to_bytes(2, "big")
+        out += frame
+        frame_no += 1
+
+    with open(path, "wb") as f:
+        f.write(bytes(out))

@@ -9,8 +9,8 @@ import sys
 import pytest
 import torch
 
-from silent_speech_tpu.data.synthetic import generate_corpus
 from silent_speech_tpu_torch.config import ModelConfig
+from silent_speech_tpu_torch.data.synthetic import generate_corpus
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.transduction_model import (build_parser,
                                                         configs_from_args)

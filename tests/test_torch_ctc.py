@@ -1,7 +1,10 @@
 """The port's CTC loss against the JAX package's ``ctc_loss``
 (``optax.ctc_loss``) on seeded packed batches with padding utterances:
 the loss, and its gradient at the packed logits (the log-softmax the
-trainers take first included)."""
+trainers take first included); and ``ops/ctc.py`` on its own: the plain
+version's per-utterance NLL against optax's (padding rows, repeats, a last
+label of 0, an infeasible row), and the plain mirror of the kernel's
+explicit backward against autograd."""
 
 from typing import NamedTuple
 
@@ -10,9 +13,12 @@ import pytest
 
 import jax
 import jax.numpy as jnp
+import optax
 import torch
 
 from silent_speech_tpu.train.losses import ctc_loss as jax_ctc_loss
+from silent_speech_tpu_torch.ops.ctc import (ctc_grad_plain, ctc_nll,
+                                             ctc_nll_plain)
 from silent_speech_tpu_torch.train.losses import ctc_loss
 
 BLANK = 37
@@ -98,15 +104,134 @@ def test_ctc_loss_matches_jax_per_utterance():
             _jax(logits, one)[0], rel=LOSS_RTOL)
 
 
-def test_an_impossible_alignment_is_inf_here_and_finite_in_jax():
+def test_an_impossible_alignment_gives_jax_s_finite_loss():
     # 5 labels, no repeats, over 4 frames: no CTC path exists. optax clamps
-    # log 0 at its log-epsilon and returns a large finite value; torch's
-    # ctc_loss returns inf. The port keeps torch's answer (an inf epoch
-    # loss raises in fit()), where JAX trains on the sentinel.
+    # log 0 at its log-epsilon and returns a large finite value; the port's
+    # CTC runs the same clamped lattice and returns the same value and
+    # gradient (the loss is ~1e5, so it is compared relatively)
     logits, batch = _batch(5, lens=(4,), n_pad=0)
     batch.text_int[0, :5] = [1, 2, 3, 4, 5]
     batch.text_len[0] = 5
-    ref, _ = _jax(logits, batch)
-    loss, _ = _port(logits, batch)
+    ref, ref_grad = _jax(logits, batch)
+    loss, grad = _port(logits, batch)
     assert np.isfinite(ref) and ref > 1e4
-    assert loss.item() == float("inf")
+    assert np.isfinite(loss.item())
+    assert loss.item() == pytest.approx(ref, rel=NLL_RTOL)
+    np.testing.assert_allclose(grad, ref_grad, rtol=0,
+                               atol=GRAD_ATOL * np.abs(ref_grad).max())
+
+
+# ---- ops/ctc.py on its own: optax's per-utterance NLL ----------------------
+
+# float32 on both sides, the same operations in the same order (only exp
+# and log1p are other implementations). Measured on these cases: the NLL
+# within 9e-8 relative, infeasible rows (~1e5) included; the gradient at
+# the logits within 3.8e-6 of its largest entry
+NLL_RTOL = 1e-6
+
+
+def _lattice_case(seed, repeat=False, last_zero=False, infeasible=False):
+    """(U=5, T=30, K=38) logits, per-row frame and label counts (the last
+    row a padding row: no frames, no labels) and labels padded with −1."""
+    rng = np.random.default_rng(seed)
+    u, t, s = 5, 30, 12
+    logits = (rng.normal(size=(u, t, BLANK + 1)) * 2).astype(np.float32)
+    utt_len = rng.integers(5, t + 1, size=u)
+    utt_len[-1] = 0
+    text_len = np.array([min(int(rng.integers(1, s + 1)), max(n // 3, 1))
+                         for n in utt_len])
+    text_len[-1] = 0
+    labels = np.full((u, s), -1, np.int64)
+    for i in range(u):
+        labels[i, :text_len[i]] = rng.integers(0, BLANK, size=text_len[i])
+    if repeat:
+        labels[0, 1] = labels[0, 0]
+    if last_zero:   # a repeat of the padding, in optax's padded row
+        labels[1, text_len[1] - 1] = 0
+    if infeasible:
+        utt_len[2], text_len[2] = 4, 5
+        labels[2] = -1
+        labels[2, :5] = [1, 2, 3, 4, 5]
+    return logits, utt_len, labels, text_len
+
+
+def _optax_nll(logits, utt_len, labels, text_len):
+    """Per-row NLL and the gradient of Σ NLL over the rows with labels,
+    at the logits (log-softmaxed before optax, as the trainers do)."""
+    t, s = logits.shape[1], labels.shape[1]
+    real = (text_len > 0).astype(np.float32)
+
+    def nll(x):
+        pad = (jnp.arange(t)[None] >= utt_len[:, None]).astype(jnp.float32)
+        lpad = (jnp.arange(s)[None] >= text_len[:, None]).astype(
+            jnp.float32)
+        return optax.ctc_loss(jax.nn.log_softmax(x), pad,
+                              jnp.maximum(labels, 0), lpad, blank_id=BLANK)
+
+    x = jnp.asarray(logits)
+    grad = jax.grad(lambda v: jnp.sum(nll(v) * real))(x)
+    return np.asarray(nll(x)), np.asarray(grad)
+
+
+def _port_nll(logits, utt_len, labels, text_len):
+    x = torch.from_numpy(logits).requires_grad_()
+    nll = ctc_nll(torch.log_softmax(x, -1), torch.from_numpy(utt_len),
+                  torch.from_numpy(labels), torch.from_numpy(text_len),
+                  BLANK)
+    (nll * torch.from_numpy(text_len > 0)).sum().backward()
+    return nll.detach().numpy(), x.grad.numpy()
+
+
+LATTICE_CASES = {"plain": {}, "repeat_and_last_zero": dict(
+    repeat=True, last_zero=True), "infeasible": dict(infeasible=True),
+    "all": dict(repeat=True, last_zero=True, infeasible=True)}
+
+
+@pytest.mark.parametrize("case", list(LATTICE_CASES))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ctc_nll_matches_optax(case, seed):
+    args = _lattice_case(seed, **LATTICE_CASES[case])
+    ref, ref_grad = _optax_nll(*args)
+    nll, grad = _port_nll(*args)
+    assert np.isfinite(nll).all() and nll.dtype == np.float32
+    np.testing.assert_allclose(nll, ref, rtol=NLL_RTOL, atol=0)
+    if case in ("infeasible", "all"):
+        assert nll[2] > 1e4
+    np.testing.assert_allclose(grad, ref_grad, rtol=0,
+                               atol=GRAD_ATOL * np.abs(ref_grad).max())
+
+
+@pytest.mark.parametrize("case", list(LATTICE_CASES))
+def test_the_kernel_s_backward_recursion_matches_autograd(case):
+    # ctc_grad_plain is the kernel's explicit backward (the reverse
+    # recursion on the cotangents, then the occupancies summed by label);
+    # autograd of the plain forward is the oracle. The same float32
+    # operations in another grouping: measured within 6e-8 of the largest
+    # entry (~1)
+    logits, utt_len, labels, text_len = _lattice_case(
+        7, **LATTICE_CASES[case])
+    lp = torch.log_softmax(torch.from_numpy(logits), -1)
+    args = (torch.from_numpy(utt_len), torch.from_numpy(labels),
+            torch.from_numpy(text_len))
+    x = lp.clone().requires_grad_()
+    (ctc_nll_plain(x, *args, BLANK)
+     * torch.from_numpy(text_len > 0)).sum().backward()
+    mirror = ctc_grad_plain(lp, *args, BLANK)
+    scale = x.grad.abs().max().item()
+    assert (mirror - x.grad).abs().max().item() <= 1e-6 * scale
+    # frames past a row's length and rows without labels: exact zeros
+    for i in range(len(utt_len)):
+        assert not mirror[i, utt_len[i]:].any()
+    assert not mirror[text_len == 0].any()
+
+
+def test_ctc_nll_checks_its_inputs():
+    lp = torch.zeros((2, 5, 4))
+    ok = (torch.tensor([5, 5]), torch.zeros((2, 3), dtype=torch.long),
+          torch.tensor([1, 2]))
+    with pytest.raises(ValueError, match="blank"):
+        ctc_nll(lp, *ok, 4)
+    with pytest.raises(ValueError, match="utt_len"):
+        ctc_nll(lp, torch.tensor([5]), *ok[1:], 3)
+    with pytest.raises(ValueError, match="device"):
+        ctc_nll(lp.to("meta"), *(x.to("meta") for x in ok), 3)

@@ -1,5 +1,7 @@
 """The port's ``EMGDataset`` against the JAX package's on a synthetic
-corpus from ``data/synthetic.generate_corpus``: the splits, the order,
+corpus from the port's ``data/synthetic.generate_corpus`` (which writes
+the JAX generator's files, ``test_torch_synthetic.py``): the splits, the
+order,
 ``example_meta`` and every field of every example. The port runs the same
 numpy/scipy code on the same files, so every array is equal bit for bit."""
 
@@ -8,21 +10,21 @@ import dataclasses
 import numpy as np
 import pytest
 
+from silent_speech_tpu.config import DataConfig as JaxDataConfig
 from silent_speech_tpu.data.dataset import EMGDataset as JaxDataset
-from silent_speech_tpu.data.synthetic import generate_corpus
-from silent_speech_tpu_torch.config import DataConfig
 from silent_speech_tpu_torch.data.dataset import EMGDataset
+from silent_speech_tpu_torch.data.synthetic import generate_corpus
 
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
-    cfg = generate_corpus(str(tmp_path_factory.mktemp("corpus")),
-                          n_voiced_sessions=1, n_silent_sessions=1,
-                          utterances_per_session=6, seed=5)
-    fields = {f.name for f in dataclasses.fields(DataConfig)}
-    ours = DataConfig(**{k: v for k, v in dataclasses.asdict(cfg).items()
-                         if k in fields})
-    return ours, cfg
+    ours = generate_corpus(str(tmp_path_factory.mktemp("corpus")),
+                           n_voiced_sessions=1, n_silent_sessions=1,
+                           utterances_per_session=6, seed=5)
+    fields = {f.name for f in dataclasses.fields(JaxDataConfig)}
+    ref = JaxDataConfig(**{k: v for k, v in dataclasses.asdict(ours).items()
+                           if k in fields})
+    return ours, ref
 
 
 def _same(a, b, key):

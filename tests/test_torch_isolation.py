@@ -8,17 +8,21 @@ import numpy as np
 import pytest
 import torch
 
-from silent_speech_tpu_torch import (bench, recognition_model,
+from silent_speech_tpu_torch import (bench, evaluate, make_normalizers,
+                                     make_testset, recognition_model,
                                      transduction_model)
 from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
                                             RecognitionTrainConfig,
                                             TransductionTrainConfig)
+from silent_speech_tpu_torch.data import dataset as dataset_module
 from silent_speech_tpu_torch.data.dataset import ExampleList
+from silent_speech_tpu_torch.data.synthetic import generate_corpus
 from silent_speech_tpu_torch.eval import export, server
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.ops import build
 from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
 from silent_speech_tpu_torch.train.transduction import TransductionTrainer
+from silent_speech_tpu_torch.utils import device as device_module
 from silent_speech_tpu_torch.utils import native
 from silent_speech_tpu_torch.utils.device import card_info, resolve_device
 
@@ -148,6 +152,8 @@ def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
                  lambda: bench.main(["--tiny"]),
                  lambda: transduction_model.main(
                      ["--output_directory", str(tmp_path)]),
+                 lambda: evaluate.main(["--output_directory", str(tmp_path),
+                                        "--models", "model.pt"]),
                  lambda: _tiny_trainer("cuda", tmp_path).fit(data, data)):
         with pytest.raises(RuntimeError, match="CUDA was requested"):
             call()
@@ -202,3 +208,28 @@ def test_the_native_search_builds_from_the_port_tree_alone():
         for line in src.read_text().splitlines():
             if line.startswith("#include \""):
                 assert (native.SOURCE_DIR / line.split('"')[1]).is_file()
+
+
+def test_the_host_tools_touch_no_device(tmp_path, monkeypatch):
+    # the corpus generator, make_normalizers, make_testset and the dataset
+    # smoke run read and write files only: with every way to a device
+    # made to fail, they run
+    def refuse(*args, **kwargs):
+        raise AssertionError("a host tool asked for a device")
+
+    monkeypatch.setattr(torch.cuda, "is_available", refuse)
+    monkeypatch.setattr(torch.cuda, "device_count", refuse)
+    monkeypatch.setattr(device_module, "resolve_device", refuse)
+    cfg = generate_corpus(str(tmp_path / "c"), n_voiced_sessions=1,
+                          n_silent_sessions=1, utterances_per_session=3,
+                          seed=1)
+    args = ["--silent_data_directories", cfg.silent_data_directories[0],
+            "--voiced_data_directories", cfg.voiced_data_directories[0],
+            "--testset_file", str(tmp_path / "split.json"),
+            "--text_align_directory", cfg.text_align_directory,
+            "--normalizers_file", str(tmp_path / "n.pkl")]
+    make_testset.main(args + ["--dev_size", "1", "--test_size", "1"])
+    make_normalizers.main(args)
+    assert dataset_module.main(args + ["--smoke_items", "2"]) == 2
+    assert (tmp_path / "split.json").is_file()
+    assert (tmp_path / "n.pkl").is_file()

@@ -13,6 +13,8 @@ import torch
 from silent_speech_tpu_torch.config import ModelConfig
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.ops import rel_attention as attention_module
+from silent_speech_tpu_torch.ops.ctc import (MAX_LABELS, ctc_nll,
+                                             ctc_nll_plain)
 from silent_speech_tpu_torch.ops.dtw import (MAX_ROWS, dtw_align_batch,
                                              dtw_align_batch_plain)
 from silent_speech_tpu_torch.ops.rel_attention import (
@@ -446,8 +448,7 @@ def _recognition_examples():
 def test_recognition_micro_step_with_kernels_matches_plain(card,
                                                            monkeypatch):
     # f32: the loss to 1e-4 relative, every gradient to 1e-3 of its
-    # largest entry (sums in another order; CTC's CUDA backward is not
-    # deterministic). The biases of the convs in front of a BatchNorm have
+    # largest entry (sums in another order). The biases of the convs in front of a BatchNorm have
     # an exact gradient of 0 (the norm subtracts the batch mean): what
     # either run computes there is rounding noise, so they are not compared
     from silent_speech_tpu_torch.models import transformer
@@ -482,3 +483,111 @@ def test_recognition_validation_on_the_card_matches_the_cpu(card):
     assert rel_attention.launches == before + 2 * len(examples)
     for o, r in zip(out, cpu):
         np.testing.assert_allclose(o, r, rtol=0, atol=1e-4)
+
+
+# ---- CTC (ops/ctc.py, csrc/ctc.cu) ------------------------------------------
+
+# the kernel against the plain version on the card: float32, the same
+# operations (only the order of the backward's sums differs). The NLL to
+# 1e-6 relative (an infeasible row's ~1e5 included), the gradient to 1e-5
+# of its largest entry
+CTC_NLL_RTOL = 1e-6
+CTC_GRAD_RTOL = 1e-5
+
+
+def _ctc_case(seed, u=6, t=120, s=24, n_real=None, infeasible=False,
+              repeat=False, last_zero=False):
+    """Log-probs (U, T, 38) and per-row frames, labels (padded with −1)
+    and label counts on the card; rows past ``n_real`` are padding rows
+    (no frames, no labels)."""
+    rng = np.random.default_rng(seed)
+    n_real = u - 1 if n_real is None else n_real
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.normal(size=(u, t, 38)).astype(np.float32) * 2), -1)
+    utt_len = np.zeros(u, np.int64)
+    text_len = np.zeros(u, np.int64)
+    labels = np.full((u, s), -1, np.int64)
+    for i in range(n_real):
+        utt_len[i] = rng.integers(t // 4, t + 1)
+        text_len[i] = rng.integers(1, min(s, utt_len[i] // 3) + 1)
+        labels[i, :text_len[i]] = rng.integers(0, 37, size=text_len[i])
+    if repeat:
+        labels[0, 1] = labels[0, 0]
+    if last_zero:
+        labels[1, text_len[1] - 1] = 0
+    if infeasible:
+        utt_len[2], text_len[2] = 4, 5
+        labels[2] = -1
+        labels[2, :5] = [1, 2, 3, 4, 5]
+    return [lp.cuda()] + [torch.from_numpy(x).cuda()
+                          for x in (utt_len, labels, text_len)]
+
+
+def _ctc_run(fn, lp, utt_len, labels, text_len, weights):
+    x = lp.detach().clone().requires_grad_()
+    nll = fn(x, utt_len, labels, text_len, 37)
+    (nll * weights).sum().backward()
+    return nll.detach(), x.grad
+
+
+CTC_CASES = {"plain": {}, "repeat_and_last_zero": dict(
+    repeat=True, last_zero=True), "infeasible": dict(infeasible=True),
+    # the recognition micro-step: 64 rows, 19 of them real, t_cap frames,
+    # TEXT_CAP label positions
+    "micro_step": dict(u=64, t=1024, s=128, n_real=19, infeasible=True)}
+
+
+@pytest.mark.parametrize("case", list(CTC_CASES))
+def test_ctc_kernel_matches_plain(card, case):
+    args = _ctc_case(3, **CTC_CASES[case])
+    weights = torch.rand(args[0].shape[0], device="cuda")
+    before = (ctc_nll.launches, ctc_nll.backward_launches)
+    nll, grad = _ctc_run(ctc_nll, *args, weights)
+    torch.cuda.synchronize()
+    assert (ctc_nll.launches - before[0],
+            ctc_nll.backward_launches - before[1]) == (1, 1)
+    ref, ref_grad = _ctc_run(ctc_nll_plain, *args, weights)
+    assert torch.isfinite(nll).all()
+    torch.testing.assert_close(nll, ref, rtol=CTC_NLL_RTOL, atol=0)
+    tol = CTC_GRAD_RTOL * float(ref_grad.abs().max())
+    torch.testing.assert_close(grad, ref_grad, rtol=0, atol=tol)
+    utt_len, text_len = args[1], args[3]
+    for i in range(len(utt_len)):   # exact zeros past a row's frames
+        assert not grad[i, int(utt_len[i]):].any()
+    assert not grad[text_len == 0].any()
+
+
+def test_ctc_kernel_is_bit_equal_between_calls(card):
+    args = _ctc_case(4, **CTC_CASES["micro_step"])
+    weights = torch.rand(args[0].shape[0], device="cuda")
+    first = _ctc_run(ctc_nll, *args, weights)
+    second = _ctc_run(ctc_nll, *args, weights)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_ctc_kernel_rejects_rows_past_its_limit(card):
+    lp, utt_len, _, text_len = _ctc_case(0)
+    labels = torch.zeros((lp.shape[0], MAX_LABELS + 1), dtype=torch.int64,
+                         device="cuda")
+    with pytest.raises(ValueError, match="MAX_LABELS"):
+        ctc_nll(lp, utt_len, labels, text_len, 37)
+
+
+def test_recognition_micro_steps_are_bit_equal(card):
+    # two micro-steps from the same state on the same batch, dropout and
+    # shift drawn from the same seeds: equal losses and gradients
+    batch = _tiny_recognizer("cpu")._pack(_recognition_examples())
+    runs = []
+    for _ in range(2):
+        trainer = _tiny_recognizer("cuda")
+        before = ctc_nll.launches
+        loss = trainer.train_step(batch, 1e-3)
+        torch.cuda.synchronize()
+        assert ctc_nll.launches == before + 1
+        runs.append((loss, {n: p.grad for n, p in
+                            trainer.model.named_parameters()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    differ = [n for n, g in runs[0][1].items()
+              if not torch.equal(g, runs[1][1][n])]
+    assert not differ, differ

@@ -12,7 +12,7 @@ import sys
 
 import pytest
 
-from silent_speech_tpu.data.synthetic import generate_corpus
+from silent_speech_tpu_torch.data.synthetic import generate_corpus
 from silent_speech_tpu_torch.eval import export
 from silent_speech_tpu_torch.recognition_model import (build_parser,
                                                        configs_from_args)

@@ -1,11 +1,14 @@
-"""The port's recognition training run on its own: resume restores the
-saved state (the half-full gradient accumulator included), the device
-corpus trains as host packing does, the ``log.txt`` lines, an infeasible
-CTC target stops the run, and the LM's load contract."""
+"""The port's recognition training run: resume restores the saved state
+(the half-full gradient accumulator included), the device corpus trains
+as host packing does, the ``log.txt`` lines, an infeasible CTC target
+trains on with the JAX trainer's step losses, and the LM's load
+contract. The one test that builds a JAX trainer restores JAX's PRNG
+implementation after it."""
 
 import dataclasses
 import logging
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -16,10 +19,14 @@ from silent_speech_tpu_torch.text import TextTransform
 from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
 
 from test_kenlm_binary import ARPA
-from torch_port_util import one_torch_thread, record_calls, tiny_config
+from torch_port_util import (TINY, jax_prng_impl_restored, one_torch_thread,
+                             random_variables, record_calls, tiny_config)
 
 SENTENCES = ("the cat", "the dog", "cat the dog", "a cat sat", "dog ran",
              "the the cat")
+# float32 on both sides, sums in another order: step losses to 1e-5
+# relative, as in test_torch_recognition_fit.py
+STEP_RTOL = 1e-5
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -137,16 +144,76 @@ def test_fit_logs_the_jax_lines(tmp_path, caplog):
     assert extra["epoch"] == 2 and extra["lr_scale"] == 0.5
 
 
-def test_an_infeasible_target_stops_the_run(tmp_path):
-    # 30 characters over 12 frames: CTC has no path, the loss is inf, and
-    # fit() raises where the JAX trainer trains on optax's finite
-    # sentinel (ROADMAP.md, faults of the port)
+def _jax_fit_step_losses(variables, train, dev, out_dir):
+    """The JAX trainer's ``fit()`` for one epoch at the tiny geometry in
+    float32, dropout and shift off, from ``variables``: its step losses.
+    No whole padding chunks (chunk bucket 1, one-device mesh)."""
+    from silent_speech_tpu.config import Config
+    from silent_speech_tpu.parallel.mesh import make_mesh
+    from silent_speech_tpu.train.recognition import \
+        RecognitionTrainer as JaxTrainer
+
+    cfg = Config()
+    m = cfg.model
+    m.model_size, m.num_layers, m.num_heads = 64, 2, 2
+    m.dim_feedforward, m.relative_positional_distance = 128, 16
+    m.dropout, m.compute_dtype, m.shift_augment = 0.0, "float32", False
+    m.fused_attention = False
+    cfg.data.seq_len, cfg.data.chunk_bucket = 48, 1
+    cfg.data.fixed_shapes = False
+    r = cfg.recognition
+    r.learning_rate, r.learning_rate_warmup = 1e-4, 2
+    r.max_batch_len, r.output_directory, r.lm_path = 1600, out_dir, ""
+    r.beam_width = 4
+    trainer = JaxTrainer(cfg, mesh=make_mesh(1, 1,
+                                             devices=jax.devices()[:1]))
+    trainer.init_state(trainer._pack([train[0]]), seed=0)
+    trainer.state = trainer.state.replace(
+        params=variables["params"], batch_stats=variables["batch_stats"])
+    steps = []
+    record_calls(trainer, "_train_step", steps)
+    trainer.fit(train, dev, epochs=1, seed=0)
+    return [float(m["loss"]) for _, m in steps]
+
+
+def test_an_infeasible_target_trains_on_as_in_jax(tmp_path):
+    # 31 characters over 12 frames: CTC has no path. optax's clamped lattice
+    # gives a finite loss (~1e5 for the row), so the JAX trainer trains on;
+    # the port's CTC runs the same lattice, and its fit() takes the same
+    # steps with the same losses (ROADMAP.md, fault 8)
+    from silent_speech_tpu.models.encoder import EMGEncoder as JaxEncoder
+    from silent_speech_tpu_torch.models.convert import jax_to_torch
+
     train, dev = _datasets()
     rng = np.random.default_rng(0)
     bad = _example(rng, 12, False, "the cat the dog the cat the dog")
-    tr = _trainer(tmp_path)
-    with pytest.raises(FloatingPointError):
-        tr.fit(ExampleList([bad] + list(train)), dev, epochs=1)
+    train = ExampleList([bad] + list(train))
+    variables = random_variables(JaxEncoder(
+        num_outs=38, num_aux_outs=None, dropout=0.0, fused_attention=False,
+        shift_augment=False, **TINY), seed=3)
+    with jax_prng_impl_restored():
+        ref = _jax_fit_step_losses(variables, train, dev,
+                                   str(tmp_path / "jax"))
+    trainer = RecognitionTrainer(
+        tiny_config(), DataConfig(seq_len=48, chunk_bucket=1,
+                                  fixed_shapes=False),
+        RecognitionTrainConfig(learning_rate=1e-4, learning_rate_warmup=2,
+                               max_batch_len=1600, lm_path="",
+                               beam_width=4,
+                               output_directory=str(tmp_path / "port")),
+        device="cpu")
+    trainer.init_state(0)
+    trainer.model.load_state_dict(
+        jax_to_torch(variables["params"], variables["batch_stats"]))
+    steps = []
+    record_calls(trainer, "train_step", steps)
+    trainer.fit(train, dev, epochs=1, seed=0)
+    losses = [float(s) for s in steps]
+    assert len(losses) == len(ref) >= 3
+    # the batch with the infeasible row: its ~1e5 NLL over 31 characters
+    assert max(ref) > 1e3 and np.isfinite(losses).all()
+    np.testing.assert_allclose(losses, ref, rtol=STEP_RTOL)
+    assert (tmp_path / "port" / "model.pt").is_file()
 
 
 def test_the_lm_load_contract(tmp_path, caplog):
