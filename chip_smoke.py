@@ -31,7 +31,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    in every bucket. Every kernel's launch count is zeroed just before and
    read just after; the forward kernel must launch 6 times a request.
    Outputs are checked for shape and finiteness, against the same bundle
-   with the plain attention on the card, and (f32) against the CPU;
+   with the plain attention on the card, and (f32) against the CPU. The
+   transduction bundle carries a mel normalizer (the export CLI's
+   ``--normalizers_file``); a full V1 HiFi-GAN generator from a seed is
+   written as an official checkpoint (weight-norm pairs, ``config.json``),
+   loaded through ``Vocoder``, held in f32 against itself on the CPU,
+   bundled with mel buckets up to 2048 (JAX's default buckets refuse the
+   1500-frame request) and attached to a second server: each vocoded
+   ``/v1/transduce`` returns audio of T·256 samples, finite, within ±1 and
+   equal to ``vocode(denormalize(mel))`` computed here, with 6 forward
+   attention launches a request;
 4. train: a full-width transduction trainer (bf16 compute, dropout 0.2,
    shift augmentation, AdamW with bf16 moments) takes 2 warm-up and 10
    timed steps on the bench's 4 example sets packed on the host to the
@@ -40,7 +49,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and read just after: 6 forward and 6 backward attention launches and 1
    DTW launch (when the batch has silent utterances) a step. Every loss is
    finite and the weights and BatchNorm statistics move. One eval step.
-   Then one f32 step with the kernels against the same step with the plain
+   Two steps from one state on one batch must give torch.equal gradients
+   (the step runs under cuDNN's deterministic algorithms), and the step
+   with cuDNN's default algorithms is timed against it in turns. Then one
+   f32 step with the kernels against the same step with the plain
    versions swapped in (same seeds, so the same dropout masks);
 5. the training run: the bench's device corpus of 4 example sets on the
    card (``silent_speech_tpu_torch/bench.py``), one batch gathered there
@@ -77,6 +89,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one utterance; an f32 micro-step with the kernels against the plain
    attention; the trained ``model.pt`` exported and one ``/v1/recognize``
    answered from it (6 forward launches);
+6b. the vocoder: ``python -m silent_speech_tpu_torch.bench_vocoder``'s
+   JSON line (full V1, batch 8 x 10 s); a full-width GAN trainer (V1
+   generator, MPD 2/3/5/7/11 and a 3-scale MSD, batch 16 of 32-frame
+   segments of wavs written under ``build/``) takes 2 warm-up and 5 timed
+   steps (steps/s, then device busy a step and idle share under the
+   profiler), every metric finite and both models moving, no ported kernel
+   launched; from a saved state, a step repeated on one batch and the same
+   step in a fresh trainer after ``load_state`` must equal the first, bit
+   for bit;
 7. from disk, through the entry points a user calls: the port's own
    generator writes a learnable FLAC corpus (2 voiced, 2 silent and 1
    non-parallel session of 6 utterances) under ``build/``;
@@ -86,9 +107,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the numbers of ``model.pt`` alone, with 2 x 6 forward attention
    launches an eval group; the recognition CLI trains one epoch (its
    validation WER printed as read) and ``--evaluate_saved`` scores its
-   ``model.pt``; every CLI's launches are counted against its steps,
-   validation batches and utterances, and the phase prints its wall time;
-8. time the requests per bucket, the forward per bucket, the training
+   ``model.pt``; ``make_vocoder_trainset`` writes the aligned predictions
+   of the training and dev utterances from the transduction CLI's
+   ``model.pt`` (6 forward attention launches an utterance, one DTW a
+   silent one), ``finetune_vocoder`` takes 2 steps on them from the seeded
+   V1 checkpoint and resumes for a 3rd, and ``generator_finetuned.pt``
+   vocodes one of the mels from a bundle; every CLI's launches are counted
+   against its steps, validation batches and utterances, and the phase
+   prints its wall time;
+8. time the requests per bucket (mel-only as before, and vocoded), the
+   forward and ``vocode()`` per bucket, the training
    steps (median of 3 synced trials) and each kernel per launch at the
    main path's shapes against its bound and its plain version (the bf16
    attention forward also by its device time per launch under the
@@ -202,6 +230,22 @@ ENSEMBLE_RTOL = 1e-6
 # the native and the plain beam search agree exactly at this width; at 100
 # they can part on a near-tie of two prefixes (log1p against log of a sum)
 REC_BEAM_CHECK = 16
+# the vocoder bundle's mel buckets: up to 2048 frames, so that the
+# 1500-frame request vocodes (JAX's default buckets stop at 1024)
+VOCODER_BUCKETS = (128, 256, 512, 1024, 2048)
+VOCODED_TIMED = 3                  # vocoded requests per length, after one
+# the HiFi-GAN generator in f32 on the card vs on the CPU (TF32 off), on
+# VOCODER_CPU_FRAMES frames: summation order only, at tanh outputs in ±1
+VOCODER_ATOL = 1e-4
+VOCODER_CPU_FRAMES = 64
+# fault 12: the transduction step with cuDNN's default algorithms against
+# the deterministic ones, in turns: rounds of steps per mode
+AB_ROUNDS, AB_STEPS = 3, 3
+# the GAN phase: the published batch of 16 segments of 32 frames, and
+# wavs of the phase's own making
+GAN_BATCH = 16
+GAN_WARMUP, GAN_TIMED, GAN_PROFILED = 2, 5, 2
+GAN_WAVS, GAN_WAV_SECONDS = 4, 2.0
 
 
 def log(msg: str) -> None:
@@ -403,11 +447,13 @@ def utterance(t: int, seed: int):
 
 
 def device_profile(card, what, fn, top=12, cpu=True, events=None):
-    """Run ``fn`` once under the profiler; log wall time, device busy time,
-    idle share and the ``top`` kernels by device time, and return (wall ms,
-    busy ms), or None when the profiler saw no device activity. ``cpu=False``
-    traces the card alone, which costs the host less. ``events``, a list,
-    receives (name, start µs, end µs) of every device event."""
+    """Run ``fn`` once under the profiler; log wall time, device busy time
+    (the union of the device events' intervals: kernels may overlap, as
+    cuDNN's grouped convolutions do), idle share and the ``top`` kernels by
+    device time, and return (wall ms, busy ms), or None when the profiler
+    saw no device activity. ``cpu=False`` traces the card alone, which
+    costs the host less. ``events``, a list, receives (name, start µs, end
+    µs) of every device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -419,24 +465,30 @@ def device_profile(card, what, fn, top=12, cpu=True, events=None):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, spans = {}, []
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us() / 1e3)
-            if events is not None:
-                events.append((ev.name, ev.time_range.start,
-                               ev.time_range.end))
-    busy = sum(by_name.values())
-    if busy == 0:
+            spans.append((ev.name, ev.time_range.start, ev.time_range.end))
+    if events is not None:
+        events.extend(spans)
+    summed = sum(by_name.values())
+    if summed == 0:
         log(f"[profile] {what}: device time not measured: the profiler saw "
             f"no CUDA activity")
         return None
+    busy, reach = 0.0, -np.inf
+    for _, start, end in sorted(spans, key=lambda e: e[1]):
+        busy += max(0.0, end - max(start, reach)) / 1e3
+        reach = max(reach, end)
+    overlap = (f" (kernel times summed {summed:.3f} ms: kernels overlap)"
+               if summed > 1.005 * busy else "")
     log(f"[profile] {card} | {what} under the profiler: wall "
-        f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{wall_ms:.3f} ms, device busy {busy:.3f} ms{overlap}, idle share "
         f"{1 - busy / wall_ms:.1%}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        log(f"[profile]   {ms:8.3f} ms {ms / busy:6.1%}  {name[:100]}")
+        log(f"[profile]   {ms:8.3f} ms {ms / summed:6.1%}  {name[:100]}")
     return wall_ms, busy
 
 
@@ -704,6 +756,10 @@ def serve(card, work):
 
     server = None
     try:
+        # the mel normalizer the export CLI embeds in the transduction
+        # bundle: the vocoded route denormalizes with it
+        norm_path = os.path.join(work, "normalizers.pkl")
+        write_normalizers(norm_path)
         bundles = {}
         for i, (kind, heads) in enumerate((("transduction", (80, 48)),
                                            ("recognition", (38, None)))):
@@ -713,11 +769,17 @@ def serve(card, work):
             torch.save(model.state_dict(), path)
             argv = ["--models", path, "--output_directory",
                     os.path.join(work, kind),
-                    "--t_buckets", ",".join(map(str, BUCKETS))]
+                    "--t_buckets", ",".join(map(str, BUCKETS)),
+                    "--normalizers_file", norm_path]
             export.main(argv + (["--recognition"]
                                 if kind == "recognition" else []))
             bundles[kind] = export.ServingBundle.load(
                 os.path.join(work, kind), device="cuda")
+        if not bundles["transduction"].has_normalizer \
+                or bundles["recognition"].has_normalizer:
+            raise AssertionError("the export CLI did not embed the mel "
+                                 "normalizer in the transduction bundle "
+                                 "alone")
         n_params = sum(p.numel() for p in
                        bundles["transduction"].model.parameters())
         log(f"[serve] transduction model: {n_params} parameters, bf16 "
@@ -826,6 +888,150 @@ def serve(card, work):
     finally:
         if server is not None:
             server.stop()
+    vocoded = serve_vocoded(card, bundles["transduction"], work)
+    return launches, vocoded
+
+
+def write_normalizers(path):
+    """A normalizers pickle with seeded statistics: (1, 80) mel means and
+    stddevs, and (1, 112) EMG ones."""
+    from silent_speech_tpu_torch.data.normalizers import (FeatureNormalizer,
+                                                          save_normalizers)
+
+    rng = np.random.default_rng(SEED)
+    norms = []
+    for dim in (80, 112):
+        n = FeatureNormalizer()
+        n.feature_means = rng.normal(size=(1, dim)).astype(np.float32)
+        n.feature_stddevs = rng.uniform(0.5, 2.0, size=(1, dim)).astype(
+            np.float32)
+        norms.append(n)
+    save_normalizers(path, *norms)
+
+
+def write_seeded_vocoder(directory):
+    """A full V1 HiFi-GAN generator from SEED, written as an official
+    checkpoint (every conv a weight_g/weight_v pair) with its config.json.
+    Returns the checkpoint's path and the generator on the CPU."""
+    import torch
+    from silent_speech_tpu_torch.models.hifigan import (
+        HiFiGANConfig, init_generator, weight_norm_state)
+
+    os.makedirs(directory, exist_ok=True)
+    cfg = HiFiGANConfig()
+    gen = init_generator(cfg, torch.Generator().manual_seed(SEED))
+    path = os.path.join(directory, "generator")
+    torch.save({"generator": weight_norm_state(gen.state_dict())}, path)
+    cfg.to_json(os.path.join(directory, "config.json"))
+    return path, gen
+
+
+def serve_vocoded(card, trans, work):
+    """Phase 3, vocoded: the seeded V1 generator loaded from its official
+    checkpoint, held against itself on the CPU, bundled and attached to the
+    server; each /v1/transduce then answers with audio. Returns the
+    launches."""
+    import torch
+    from silent_speech_tpu_torch.eval import export
+    from silent_speech_tpu_torch.eval.server import ServingServer
+    from silent_speech_tpu_torch.models.hifigan import Vocoder
+
+    path, gen = write_seeded_vocoder(os.path.join(work, "hifigan"))
+    vocoder = Vocoder(path, device="cuda")
+    folded = vocoder.generator.state_dict()
+    fold_err = max((folded[k].cpu() - v).abs().max().item()
+                   for k, v in gen.state_dict().items())
+    n_params = sum(p.numel() for p in gen.parameters())
+    n_tensors = len(torch.load(path, weights_only=True)["generator"])
+    log(f"[serve.voc] V1 generator, {n_params} parameters, from an "
+        f"official checkpoint of {n_tensors} tensors (weight-norm "
+        f"pairs): folded weights within {fold_err:.3g} "
+        f"of the seeded ones (tolerance 1e-6)")
+    if not fold_err <= 1e-6:
+        raise AssertionError("folding the weight norm did not give the "
+                             "generator's weights")
+
+    # the generator on the card against the same one on the CPU, f32
+    mel = (0.5 * np.random.default_rng(SEED + 5).normal(
+        size=(VOCODER_CPU_FRAMES, 80))).astype(np.float32)
+    with torch.no_grad():
+        ref = gen(torch.from_numpy(mel)[None])[0].numpy()
+    err = float(np.abs(vocoder(mel) - ref).max())
+    log(f"[serve.voc] generator f32 card vs CPU, {VOCODER_CPU_FRAMES} "
+        f"frames: max_abs_err {err:.3g} (tolerance {VOCODER_ATOL})")
+    if not err <= VOCODER_ATOL:
+        raise AssertionError("the generator on the card disagrees with the "
+                             "CPU")
+
+    # JAX's default buckets refuse the longest request; these serve it
+    default = export.ServingBundle.load(export.save_vocoder_bundle(
+        vocoder, os.path.join(work, "vocoder_default")), device="cuda")
+    try:
+        default.vocode(np.zeros((REQUEST_T[-1], 80), np.float32))
+        raise AssertionError("a mel over the largest bucket vocoded")
+    except ValueError as e:
+        log(f"[serve.voc] default buckets {default.manifest['t_buckets']}, "
+            f"{REQUEST_T[-1]} frames: refused ({e})")
+    del default
+    voc = export.ServingBundle.load(export.save_vocoder_bundle(
+        vocoder, os.path.join(work, "vocoder"), VOCODER_BUCKETS),
+        device="cuda")
+    del vocoder
+    hop = voc.manifest["hop_length"]
+
+    server = ServingServer(transduction=trans, vocoder=voc).start()
+    latency, replies = {}, {}
+    try:
+        reset_launches()
+        for t in REQUEST_T:
+            emg, raw = utterance(t, seed=SEED + t)
+            body = {"emg": emg.tolist(), "raw_emg": raw.tolist(),
+                    "session_ids": [0] * t}
+            for rep in range(1 + VOCODED_TIMED):
+                t0 = time.perf_counter()
+                reply = post(server.port, "/v1/transduce", body)
+                if rep:
+                    latency.setdefault(t, []).append(
+                        time.perf_counter() - t0)
+            replies[t] = reply
+        launches = read_launches()
+    finally:
+        server.stop()
+    n_requests = len(REQUEST_T) * (1 + VOCODED_TIMED)
+    layers = trans.model.cfg.num_layers
+    log(f"[serve.voc] {n_requests} vocoded requests, launches {launches}")
+    if launches != launch_counts(rel_attention_fwd=layers * n_requests):
+        raise AssertionError(f"expected {layers} forward attention launches "
+                             f"per vocoded request, got {launches}")
+    for t, reply in replies.items():
+        mel = np.asarray(reply["mel"], np.float32)
+        audio = np.asarray(reply["audio"], np.float32)
+        ref = voc.vocode(trans.denormalize(mel))
+        same = audio.shape == ref.shape and np.array_equal(audio, ref)
+        ok = (audio.shape == (t * hop,) and np.isfinite(audio).all()
+              and np.abs(audio).max() <= 1.0 and same)
+        log(f"[serve.voc] t={t}: audio {audio.shape}, max |audio| "
+            f"{np.abs(audio).max():.4f}, equal to vocode(denormalize(mel)) "
+            f"computed here: {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"vocoded reply at t={t} is wrong")
+
+    for t in REQUEST_T:
+        bucket = next(b for b in VOCODER_BUCKETS if t <= b)
+        mel = trans.denormalize(np.asarray(replies[t]["mel"], np.float32))
+        voc.vocode(mel)
+        samples = []
+        for _ in range(TIMED_REQUESTS):
+            t0 = time.perf_counter()
+            voc.vocode(mel)
+            samples.append(time.perf_counter() - t0)
+        log(f"[time] {card} | /v1/transduce with audio, vocoder bucket "
+            f"{bucket} (t={t}): request p50 {median_ms(latency[t]):.2f} ms "
+            f"over {len(latency[t])}; vocode() alone p50 "
+            f"{median_ms(samples):.2f} ms (generator incl. host copies, no "
+            f"HTTP/JSON)")
+    device_profile(card, f"vocode() bucket {bucket} (t={t})",
+                   lambda: voc.vocode(mel))
     return launches
 
 
@@ -961,6 +1167,8 @@ def train(card):
     if not ev_ok:
         raise AssertionError("eval step output is malformed")
 
+    transduction_determinism(card, trainer, order)
+
     def one_step():
         trainer.train_step(order[0], cfg.learning_rate)
 
@@ -1022,6 +1230,97 @@ def train(card):
         f"{list(TRIAL_STEPS)} steps, median {float(np.median(trials)):.3f} "
         f"steps/s")
     return launches, trials, (costs, n1, n2)
+
+
+def _snapshot(trainer):
+    """A copy of everything a transduction step reads and writes: weights
+    and statistics, the AdamW moments and count, the step generator."""
+    opt = trainer.optimizer
+    return ({k: v.detach().clone()
+             for k, v in trainer.model.state_dict().items()},
+            [m.clone() for m in opt.mu + opt.nu], opt.count,
+            trainer.generator.get_state())
+
+
+def _restore(trainer, snap):
+    import torch
+
+    state, moments, count, gen_state = snap
+    opt = trainer.optimizer
+    with torch.no_grad():
+        trainer.model.load_state_dict(state)
+        for dst, src in zip(opt.mu + opt.nu, moments):
+            dst.copy_(src)
+    opt.count = count
+    trainer.generator.set_state(gen_state)
+
+
+def transduction_determinism(card, trainer, order):
+    """Phase 4, fault 12: two full-width steps from one state on one batch
+    give torch.equal gradients; then the step under cuDNN's deterministic
+    algorithms against the default ones, timed in turns in this call."""
+    import torch
+    from silent_speech_tpu_torch.train import transduction
+
+    lr = trainer.train_cfg.learning_rate
+    snap = _snapshot(trainer)
+    runs = []
+    for _ in range(2):
+        _restore(trainer, snap)
+        out = trainer.train_step(order[0], lr)
+        runs.append((out.loss.detach().clone(),
+                     {n: p.grad.detach().clone()
+                      for n, p in trainer.model.named_parameters()}))
+    differ = [n for n, g in runs[0][1].items()
+              if not torch.equal(g, runs[1][1][n])]
+    same_loss = torch.equal(runs[0][0], runs[1][0])
+    shown = f" (differ: {', '.join(differ[:6])})" if differ else ""
+    log(f"[train] two steps from one state on one batch: loss equal "
+        f"{same_loss}, {len(runs[0][1]) - len(differ)}/{len(runs[0][1])} "
+        f"parameter gradients torch.equal{shown}")
+    if differ or not same_loss:
+        raise AssertionError("the transduction step is not deterministic")
+    del runs
+    _restore(trainer, snap)
+    del snap
+
+    def default_algorithms():
+        return swapped(transduction, "deterministic_cudnn",
+                       contextlib.nullcontext)
+
+    with default_algorithms():   # the default algorithms' first call
+        trainer.train_step(order[1], lr)
+    rates = {"default": [], "deterministic": []}
+    step = 0
+    for _ in range(AB_ROUNDS):
+        for mode in rates:
+            with contextlib.ExitStack() as stack:
+                if mode == "default":
+                    stack.enter_context(default_algorithms())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(AB_STEPS):
+                    trainer.train_step(order[step % len(order)], lr)
+                    step += 1
+                torch.cuda.synchronize()
+                rates[mode].append(AB_STEPS / (time.perf_counter() - t0))
+    busy = {}
+    for mode in rates:
+        with contextlib.ExitStack() as stack:
+            if mode == "default":
+                stack.enter_context(default_algorithms())
+            prof = device_profile(
+                card, f"one bf16 training step, cuDNN {mode} algorithms",
+                lambda: trainer.train_step(order[0], lr), top=4, cpu=False)
+        busy[mode] = None if prof is None else prof[1]
+    med = {m: float(np.median(r)) for m, r in rates.items()}
+    log(f"[time] {card} | train step, cuDNN default vs deterministic "
+        f"algorithms in turns ({AB_ROUNDS} rounds of {AB_STEPS} steps "
+        f"each): default {np.round(rates['default'], 3).tolist()} steps/s, "
+        f"deterministic {np.round(rates['deterministic'], 3).tolist()}; "
+        f"medians {med['default']:.3f} vs {med['deterministic']:.3f} "
+        f"({med['deterministic'] / med['default'] - 1:+.1%}); device busy a "
+        f"step {fmt_ms(busy['default'])} vs {fmt_ms(busy['deterministic'])}")
 
 
 def _state_equal(a, b) -> bool:
@@ -1653,6 +1952,132 @@ def recognition_run(card, work):
     return fit_launches, serve_launches, captured["args"]
 
 
+def _gan_weights(trainer):
+    import torch
+
+    return {**{f"generator.{k}": v.detach().clone()
+               for k, v in trainer.generator.state_dict().items()},
+            **{f"disc.{k}": v.detach().clone()
+               for k, v in trainer.disc.state_dict().items()}}
+
+
+def vocoder_run(card, work):
+    """The vocoder phase: bench_vocoder's line, then the full-width GAN
+    trainer (V1 generator, MPD 2/3/5/7/11 + 3-scale MSD) on segments of
+    wavs written here: steps/s, device busy and idle share, moving
+    weights, two steps from one state bit-equal, an exact resume. Returns
+    the launches of the GAN steps (none of the ported kernels)."""
+    import torch
+    from silent_speech_tpu_torch import bench_vocoder
+    from silent_speech_tpu_torch.train.vocoder import (VocoderDataSource,
+                                                       VocoderTrainer)
+    from silent_speech_tpu_torch.utils.audio_io import write_wav
+
+    t_phase = time.perf_counter()
+    line = bench_vocoder.main([])
+    log(f"[voc] bench_vocoder: {line['value']} x real time, TF32 "
+        f"convolutions {line['tf32_conv']}")
+
+    rng = np.random.default_rng(SEED)
+    n = int(GAN_WAV_SECONDS * 22050)
+    t = np.arange(n) / 22050
+    for i in range(GAN_WAVS):
+        audio = 0.4 * np.sin(2 * np.pi * (120 + 45 * i) * t) \
+            + 0.02 * rng.normal(size=n)
+        write_wav(os.path.join(work, f"{i}.wav"), audio.astype(np.float32),
+                  22050)
+    batches = VocoderDataSource(work, seed=SEED).batches(GAN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer = VocoderTrainer(device="cuda")
+    n_gen = sum(p.numel() for p in trainer.generator.parameters())
+    n_disc = sum(p.numel() for p in trainer.disc.parameters())
+    before = _gan_weights(trainer)
+
+    reset_launches()
+    metrics = []
+    step = 0
+    for n_steps, timed in ((GAN_WARMUP, False), (GAN_TIMED, True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            mels, audio = next(batches)
+            metrics.append(trainer.train_step(
+                mels, audio, trainer.learning_rate(step, 1000)))
+            step += 1
+        torch.cuda.synchronize()
+        if timed:
+            rate = n_steps / (time.perf_counter() - t0)
+    launches = read_launches()
+    values = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    after = _gan_weights(trainer)
+    moved = {part: sum(not torch.equal(before[k], after[k])
+                       for k in before if k.startswith(part))
+             for part in ("generator.", "disc.")}
+    counts = {part: sum(k.startswith(part) for k in before)
+              for part in moved}
+    finite = all(np.isfinite(v).all() for v in values.values())
+    log(f"[voc] GAN trainer: generator {n_gen} and discriminators {n_disc} "
+        f"parameters, batch {GAN_BATCH} x 32 frames; metrics "
+        f"{ {k: np.round(v, 4).tolist() for k, v in values.items()} }; "
+        f"moved: {moved['generator.']}/{counts['generator.']} generator and "
+        f"{moved['disc.']}/{counts['disc.']} discriminator tensors; "
+        f"launches {launches}")
+    if (not finite or not all(moved.values())
+            or launches != launch_counts()):
+        raise AssertionError("the GAN steps failed: a metric not finite, "
+                             "a model that did not move, or a kernel "
+                             "launched")
+
+    def profiled():
+        for _ in range(GAN_PROFILED):
+            trainer.train_step(*next(batches), trainer.learning_rate(0, 1000))
+
+    prof = device_profile(card, f"{GAN_PROFILED} GAN steps (batch "
+                          f"{GAN_BATCH} x 32 frames)", profiled, top=8)
+    busy, idle = "not measured", "not measured"
+    if prof is not None:
+        busy = fmt_ms(prof[1] / GAN_PROFILED)
+        idle = f"{1 - prof[1] / prof[0]:.1%}"
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[time] {card} | GAN step, V1 generator + MPD + MSD, batch "
+        f"{GAN_BATCH} x 32 frames, cuDNN deterministic: {rate:.3f} steps/s "
+        f"over {GAN_TIMED} after {GAN_WARMUP}; under the profiler device "
+        f"busy a step {busy}, idle share {idle}; peak memory "
+        f"{peak / 2**30:.2f} GiB over the {base / 2**30:.2f} GiB held "
+        f"before the phase")
+
+    # one state, one batch: two steps bit-equal, and a resume in a fresh
+    # trainer equal to the uninterrupted step
+    state_dir = os.path.join(work, "state")
+    trainer.save_state(state_dir, step=step)
+    mels, audio = next(batches)
+    lr = trainer.learning_rate(step, 1000)
+    runs = []
+    for resumed in (False, False, True):
+        if resumed:
+            del trainer
+            torch.cuda.empty_cache()
+            trainer = VocoderTrainer(seed=SEED + 1, device="cuda")
+        if trainer.load_state(state_dir) != step:
+            raise AssertionError("the saved step did not come back")
+        m = trainer.train_step(mels, audio, lr)
+        runs.append((m, _gan_weights(trainer)))
+    for name, (m, w) in (("repeat", runs[1]), ("resume", runs[2])):
+        same_m = all(torch.equal(m[k], runs[0][0][k]) for k in m)
+        differ = [k for k in w if not torch.equal(w[k], runs[0][1][k])]
+        log(f"[voc] {name} of step {step + 1} from the saved state: metrics "
+            f"equal {same_m}, {len(w) - len(differ)}/{len(w)} weight "
+            f"tensors torch.equal")
+        if not same_m or differ:
+            raise AssertionError(f"the GAN step's {name} is not bit-equal: "
+                                 f"{differ[:6]}")
+    del trainer, runs
+    torch.cuda.empty_cache()
+    log(f"[voc] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def counted(cls, name, sink, silent_of):
     """Wrap the method ``cls.name`` in the block: each call that returns
     something appends ``silent_of(*args)`` (whether its batch has silent
@@ -1804,6 +2229,8 @@ def disk_run(card, work):
         raise AssertionError("the 2-model ensemble of one model.pt differs "
                              "from the model alone, or launched otherwise")
 
+    vocoder_launches = disk_vocoder(work, data, model_pt, layers)
+
     # the recognition CLI: one epoch, then --evaluate_saved on its model.pt
     lm_path = os.path.join(work, "lm.arpa")
     write_bigram_arpa([trainset.example_meta(i)["text"]
@@ -1851,8 +2278,89 @@ def disk_run(card, work):
     if not np.isfinite(wer) or launches != expected:
         raise AssertionError("--evaluate_saved failed")
     log(f"[disk] phase wall time {time.perf_counter() - t_phase:.1f} s; "
-        f"launches {total}")
-    return total
+        f"launches {total} (the vocoder CLIs' apart)")
+    return total, vocoder_launches
+
+
+def disk_vocoder(work, data, model_pt, layers):
+    """Phase 7, the vocoder CLIs: make_vocoder_trainset from the
+    transduction CLI's model.pt, finetune_vocoder for 2 steps from the
+    seeded V1 checkpoint and a resume for a 3rd, and the fine-tuned
+    generator bundled and vocoding one mel. Returns the launches by
+    CLI."""
+    import torch
+    from silent_speech_tpu_torch import (finetune_vocoder,
+                                         make_vocoder_trainset)
+    from silent_speech_tpu_torch.eval import export
+    from silent_speech_tpu_torch.models.hifigan import Vocoder
+    from silent_speech_tpu_torch.train.transduction import \
+        TransductionTrainer
+
+    out = {}
+    voc_data = os.path.join(work, "voc_data")
+    utts = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with counted(TransductionTrainer, "get_aligned_prediction", utts,
+                 lambda ex, norm: bool(ex["silent"])):
+        n = make_vocoder_trainset.main(data + [
+            "--model", model_pt, "--output_directory", voc_data])
+    torch.cuda.synchronize()
+    out["make_vocoder_trainset"] = launches = read_launches()
+    expected = launch_counts(rel_attention_fwd=layers * len(utts),
+                             dtw_align=sum(utts))
+    names = sorted(os.listdir(os.path.join(voc_data, "mels")))
+    mel = np.load(os.path.join(voc_data, "mels", names[0]))
+    ok = (n == len(utts) == len(names) > 0 and sum(utts) > 0
+          and launches == expected and mel.dtype == np.float32
+          and mel.shape[:2] == (1, 80) and np.isfinite(mel).all())
+    log(f"[disk] make_vocoder_trainset: {n} utterances ({sum(utts)} "
+        f"silent) in {time.perf_counter() - t0:.2f} s, {names[0]} "
+        f"{mel.shape} {mel.dtype}; launches {launches} (expected "
+        f"{expected}: {layers} forward attention an utterance, one DTW a "
+        f"silent one) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("make_vocoder_trainset failed")
+
+    ckpt, _ = write_seeded_vocoder(os.path.join(work, "hifigan"))
+    run = os.path.join(work, "finetune")
+    args = ["--data_directory", voc_data, "--hifigan_checkpoint", ckpt,
+            "--output_directory", run]
+    reset_launches()
+    t0 = time.perf_counter()
+    first = finetune_vocoder.main(args + ["--steps", "2"])
+    logged = log_lines(os.path.join(run, "log.txt"), "finetune done")
+    final = finetune_vocoder.main(args + ["--steps", "1", "--resume"])
+    out["finetune_vocoder"] = launches = read_launches()
+    resumed = (log_lines(os.path.join(run, "log.txt"), "resumed")
+               + log_lines(os.path.join(run, "log.txt"), "finetune done"))
+    ok = (np.isfinite(list(first.values()) + list(final.values())).all()
+          and any("at 2 total" in x for x in logged)
+          and any("at step 2" in x for x in resumed)
+          and any("at 3 total" in x for x in resumed)
+          and launches == launch_counts())
+    log(f"[disk] finetune_vocoder --steps 2, then --resume --steps 1, in "
+        f"{time.perf_counter() - t0:.2f} s: {logged}; {resumed}; launches "
+        f"{launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("finetune_vocoder failed or did not resume")
+
+    vocoder = Vocoder(os.path.join(run, "generator_finetuned.pt"),
+                      config_path=os.path.join(work, "hifigan",
+                                               "config.json"),
+                      device="cuda")
+    bundle = export.ServingBundle.load(export.save_vocoder_bundle(
+        vocoder, os.path.join(work, "vocoder_finetuned")), device="cuda")
+    mel = mel[0].T
+    audio = bundle.vocode(mel)
+    ok = (audio.shape == (mel.shape[0] * 256,) and np.isfinite(audio).all()
+          and np.abs(audio).max() <= 1.0)
+    log(f"[disk] generator_finetuned.pt bundled: {names[0]} vocoded to "
+        f"{audio.shape} samples, max |audio| {np.abs(audio).max():.4f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fine-tuned generator did not vocode")
+    return out
 
 
 def time_ctc(card, rec_ctc, errs):
@@ -2251,7 +2759,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT,
                                                                    "build"))
     try:
-        serve_launches = serve(card, work)
+        serve_launches, vocoded_launches = serve(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     lap("serve")
@@ -2280,11 +2788,20 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     lap("recognition")
 
+    # 6b. the vocoder ------------------------------------------------------
+    work = tempfile.mkdtemp(prefix="chip_smoke_voc_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        gan_launches = vocoder_run(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lap("vocoder")
+
     # 7. the CLIs from disk ------------------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_disk_",
                             dir=os.path.join(ROOT, "build"))
     try:
-        disk_launches = disk_run(card, work)
+        disk_launches, disk_vocoder_launches = disk_run(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     lap("disk")
@@ -2295,7 +2812,8 @@ def main() -> int:
                "fit": fit_launches, "aligned_prediction": aligned_launches,
                "recognition_fit": rec_launches,
                "recognition_serve": rec_serve_launches,
-               "disk": disk_launches},
+               "disk": disk_launches, "serve_vocoded": vocoded_launches,
+               "gan": gan_launches, **disk_vocoder_launches},
         errs, dtw_inputs, aligned_inputs, rec_ctc)
     lap("timings")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the card was "

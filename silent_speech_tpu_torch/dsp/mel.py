@@ -1,19 +1,26 @@
-"""HiFi-GAN log-mel spectrogram (numpy, host side).
+"""HiFi-GAN log-mel spectrogram: numpy on the host, torch on a device.
 
-Own copy of the numpy half of the JAX package's
-``silent_speech_tpu/dsp/mel.py`` (reference ``data_utils.py:29-83``):
+Own copy of the JAX package's ``silent_speech_tpu/dsp/mel.py`` (reference
+``data_utils.py:29-83``):
 reflect-pad by ``(n_fft − hop)/2``, an STFT with a periodic Hann window and
 ``center=False``, magnitude ``sqrt(re² + im² + 1e-9)``, a Slaney-normalized
 mel filterbank (librosa's ``htk=False, norm='slaney'``), then
 ``log(clamp(x, 1e-5))``. HiFi-GAN's checkpoints were trained on exactly
 these numbers.
+
+``torch_log_mel_spectrogram`` is the counterpart of
+``jax_log_mel_spectrogram``: batched, differentiable (the vocoder's mel
+loss), and with the DFT as two matrix products as in JAX, whose numerics it
+follows.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -106,3 +113,62 @@ def log_mel_spectrogram(audio: np.ndarray, cfg: MelConfig = MelConfig()
     basis = mel_filterbank(cfg.sampling_rate, cfg.n_fft, cfg.num_mels,
                            cfg.fmin, cfg.fmax)
     return np.log(np.clip(basis @ mag, 1e-5, None)).T.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# torch, on any device
+# ---------------------------------------------------------------------------
+
+def _dft_matrices(n_fft: int):
+    """Real and imaginary rDFT bases, (n_fft, 1 + n_fft//2) float32."""
+    k = np.arange(1 + n_fft // 2)
+    n = np.arange(n_fft)
+    ang = 2.0 * np.pi * np.outer(n, k) / n_fft
+    return (np.cos(ang).astype(np.float32),
+            -np.sin(ang).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_constants(cfg: MelConfig, device: torch.device):
+    """The window, the two DFT bases and the transposed mel basis of
+    ``cfg`` on ``device``, made once."""
+    cos_m, sin_m = _dft_matrices(cfg.n_fft)
+    basis = mel_filterbank(cfg.sampling_rate, cfg.n_fft, cfg.num_mels,
+                           cfg.fmin, cfg.fmax)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (hann_window(cfg.win_size), cos_m, sin_m, basis.T))
+
+
+def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """numpy's ``reflect`` padding of the last axis, for any widths (a pad
+    longer than the signal reflects again). Built from a flip and copies,
+    so that its backward sums in a fixed order: ``F.pad``'s reflect
+    backward adds with atomics on the card."""
+    t = x.shape[-1]
+    if t < 2:
+        raise ValueError("reflect padding needs at least 2 samples")
+    period = 2 * (t - 1)   # one period of the reflected signal
+    ext = torch.cat([x, x.flip(-1)[..., 1:-1]], dim=-1)
+    start = (-left) % period
+    n = left + t + right
+    reps = -(-(start + n) // period)
+    if reps > 1:
+        ext = torch.cat([ext] * reps, dim=-1)
+    return ext[..., start: start + n]
+
+
+def torch_log_mel_spectrogram(audio: torch.Tensor,
+                              cfg: MelConfig = MelConfig()) -> torch.Tensor:
+    """audio (B, T) → (B, F, num_mels) log-mel on ``audio``'s device, in
+    the steps of ``jax_log_mel_spectrogram``: reflect-pad by
+    ``(n_fft − hop)/2``, frames of ``n_fft`` every ``hop`` samples times the
+    Hann window, the DFT as two products, ``sqrt(re² + im² + 1e-9)``, the
+    mel basis, ``log(clamp(·, 1e-5))``. Differentiable."""
+    window, cos_m, sin_m, basis_t = _mel_constants(cfg, audio.device)
+    pad = int((cfg.n_fft - cfg.hop_size) / 2)
+    frames = reflect_pad(audio, pad, pad).unfold(-1, cfg.n_fft,
+                                                 cfg.hop_size) * window
+    re = frames @ cos_m
+    im = frames @ sin_m
+    mag = torch.sqrt(re * re + im * im + 1e-9)
+    return torch.log(torch.clamp(mag @ basis_t, min=1e-5))

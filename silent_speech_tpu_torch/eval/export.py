@@ -11,19 +11,30 @@ the end, which in a padded input is ``relu(bn(conv(0)))``, not zero.
 Bundle layout (``directory/``)::
 
     manifest.json   kind, t_buckets, num_features, num_raw_channels,
-                    quantize (null), charset (recognition)
+                    quantize (null), charset (recognition),
+                    audio_normalizer (transduction, optional: the mel
+                    denormalization means and stddevs)
     model.pt        reference-layout state dict
 
+A vocoder bundle (``save_vocoder_bundle``) holds the HiFi-GAN generator
+with its weight norm folded: ``manifest.json`` (kind ``vocoder``, mel-frame
+``t_buckets``, ``num_mels``, ``hop_length``, the generator's config) and
+``generator.pt``. With a transduction bundle that carries a normalizer it
+completes EMG → speech: ``vocode(denormalize(mel))``.
+
 CLI — export a reference-layout checkpoint, such as the ``model.pt`` the
-trainers write every epoch::
+trainers write every epoch; a transduction bundle embeds the normalizer of
+``--normalizers_file`` when that file exists::
 
     python -m silent_speech_tpu_torch.eval.export --models run/model.pt \
-        --output_directory serving/ [--recognition] [--t_buckets 256,512]
+        --output_directory serving/ [--recognition] [--t_buckets 256,512] \
+        [--normalizers_file normalizers.pkl]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 from typing import Optional, Sequence
@@ -31,16 +42,24 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..config import DataConfig
+from ..data.normalizers import load_normalizers
 from ..models.encoder import EMGEncoder
+from ..models.hifigan import Generator, HiFiGANConfig
 from ..text import CHARS
 from ..utils.device import resolve_device
 from .decode import greedy_ctc_decode
 
 _MANIFEST = "manifest.json"
 _WEIGHTS = "model.pt"
+_GENERATOR = "generator.pt"
 
 DEFAULT_T_BUCKETS = (256, 512, 1024, 2048)
+DEFAULT_MEL_BUCKETS = (128, 256, 512, 1024)
 KINDS = ("transduction", "recognition")
+# the log-mel floor (dsp/mel.py: log(clip(x, 1e-5))): a vocoder pads with
+# silence, not with the loud broadband energy a 0.0 log-mel would be
+MEL_PAD = float(np.log(1e-5))
 
 # input dims are fixed: 14 features x 8 channels, 8 raw EMG channels
 N_FEATURES = 112
@@ -59,9 +78,13 @@ def _check_kind(model: EMGEncoder, kind: str) -> None:
 
 def save_serving_bundle(model: EMGEncoder, kind: str, directory: str,
                         t_buckets: Sequence[int] = DEFAULT_T_BUCKETS,
-                        charset: Optional[Sequence[str]] = None) -> str:
+                        charset: Optional[Sequence[str]] = None,
+                        audio_normalizer=None) -> str:
     """Write ``model`` as a serving bundle of ``kind`` into ``directory``
-    and return the directory."""
+    and return the directory. ``audio_normalizer`` (a
+    ``FeatureNormalizer``, the dataset's ``mfcc_norm``) embeds the mel
+    denormalization statistics, so that a vocoder runs without the
+    corpus."""
     _check_kind(model, kind)
     for t in t_buckets:
         if t <= 0 or t % 32:
@@ -78,13 +101,43 @@ def save_serving_bundle(model: EMGEncoder, kind: str, directory: str,
     }
     if kind == "recognition":
         manifest["charset"] = list(CHARS if charset is None else charset)
+    if audio_normalizer is not None:
+        manifest["audio_normalizer"] = {
+            "means": np.asarray(
+                audio_normalizer.feature_means).ravel().tolist(),
+            "stddevs": np.asarray(
+                audio_normalizer.feature_stddevs).ravel().tolist(),
+        }
     with open(os.path.join(directory, _MANIFEST), "w") as f:
         json.dump(manifest, f, indent=1)
     return directory
 
 
+def save_vocoder_bundle(vocoder, directory: str,
+                        mel_buckets: Sequence[int] = DEFAULT_MEL_BUCKETS
+                        ) -> str:
+    """Write the HiFi-GAN generator of ``vocoder`` (a
+    ``models.hifigan.Vocoder``, or anything with ``.generator`` and
+    ``.cfg``) as a vocoder bundle serving mels of up to the largest of
+    ``mel_buckets`` frames; returns the directory."""
+    os.makedirs(directory, exist_ok=True)
+    cfg = vocoder.cfg
+    torch.save({k: v.detach().cpu()
+                for k, v in vocoder.generator.state_dict().items()},
+               os.path.join(directory, _GENERATOR))
+    with open(os.path.join(directory, _MANIFEST), "w") as f:
+        json.dump({"kind": "vocoder",
+                   "t_buckets": sorted(int(b) for b in mel_buckets),
+                   "num_mels": cfg.num_mels,
+                   "hop_length": cfg.hop_length,
+                   "generator_config": dataclasses.asdict(cfg)}, f,
+                  indent=1)
+    return directory
+
+
 class ServingBundle:
-    """A loaded bundle: the encoder on ``device`` in ``dtype`` compute."""
+    """A loaded bundle on ``device``: the encoder in ``dtype`` compute, or
+    (kind ``vocoder``) the generator in float32, as the JAX bundle's."""
 
     def __init__(self, directory: str, device=None,
                  dtype: torch.dtype = torch.bfloat16):
@@ -94,11 +147,18 @@ class ServingBundle:
         self.kind = self.manifest["kind"]
         if self.manifest.get("quantize") is not None:
             raise ValueError("quantized bundles are not supported yet")
-        state = torch.load(os.path.join(directory, _WEIGHTS),
-                           map_location="cpu", weights_only=True)
-        self.model = EMGEncoder.from_state_dict(
-            state, compute_dtype=str(dtype).removeprefix("torch."))
-        _check_kind(self.model, self.kind)
+        if self.kind == "vocoder":
+            self.model = Generator(HiFiGANConfig.from_dict(
+                self.manifest["generator_config"]))
+            self.model.load_state_dict(torch.load(
+                os.path.join(directory, _GENERATOR), map_location="cpu",
+                weights_only=True), strict=True)
+        else:
+            state = torch.load(os.path.join(directory, _WEIGHTS),
+                               map_location="cpu", weights_only=True)
+            self.model = EMGEncoder.from_state_dict(
+                state, compute_dtype=str(dtype).removeprefix("torch."))
+            _check_kind(self.model, self.kind)
         self.model.to(self.device).eval()
 
     @classmethod
@@ -140,6 +200,33 @@ class ServingBundle:
                 out = torch.log_softmax(out, dim=-1)
             return out[0, :t].cpu().numpy()
 
+    @property
+    def has_normalizer(self) -> bool:
+        return "audio_normalizer" in self.manifest
+
+    def denormalize(self, mel: np.ndarray) -> np.ndarray:
+        """A normalized mel, as ``predict`` returns it, → the log-mel a
+        vocoder takes: ``mel·std + mean`` with the embedded statistics."""
+        n = self.manifest["audio_normalizer"]
+        return (mel * np.asarray(n["stddevs"], np.float32)
+                + np.asarray(n["means"], np.float32))
+
+    def vocode(self, mel: np.ndarray) -> np.ndarray:
+        """(vocoder bundles) mel (F, num_mels) → waveform (F·hop,). The mel
+        is padded with the log-mel floor to the smallest covering bucket,
+        as the JAX bundle pads, so the last samples, in the receptive field
+        of the padding, may differ slightly from an unpadded run."""
+        if self.kind != "vocoder":
+            raise ValueError(f"vocode needs a vocoder bundle, not "
+                             f"{self.kind}")
+        t = mel.shape[0]
+        mel_p = np.full((1, self._bucket(t), mel.shape[1]), MEL_PAD,
+                        np.float32)
+        mel_p[0, :t] = mel
+        with torch.inference_mode():
+            audio = self.model(torch.from_numpy(mel_p).to(self.device))
+            return audio[0, : t * self.manifest["hop_length"]].cpu().numpy()
+
     def decode_greedy(self, log_probs: np.ndarray) -> str:
         """Greedy CTC transcript from ``predict`` output (recognition)."""
         if self.kind != "recognition":
@@ -162,14 +249,23 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     ap.add_argument("--t_buckets",
                     default=",".join(str(t) for t in DEFAULT_T_BUCKETS),
                     help="time buckets in frames, multiples of 32")
+    ap.add_argument("--normalizers_file",
+                    default=DataConfig().normalizers_file,
+                    help="pickled feature normalizers: a transduction "
+                         "bundle embeds the mel normalizer when it exists")
     args = ap.parse_args(argv)
     state = torch.load(args.models[0], map_location="cpu", weights_only=True)
     model = EMGEncoder.from_state_dict(state)
     kind = "recognition" if args.recognition else "transduction"
+    audio_norm = None
+    if kind == "transduction" and os.path.exists(args.normalizers_file):
+        audio_norm, _ = load_normalizers(args.normalizers_file)
     out = save_serving_bundle(
         model, kind, args.output_directory,
-        t_buckets=[int(t) for t in args.t_buckets.split(",")])
-    print(f"wrote {kind} serving bundle → {out}")
+        t_buckets=[int(t) for t in args.t_buckets.split(",")],
+        audio_normalizer=audio_norm)
+    print(f"wrote {kind} serving bundle → {out} (mel normalizer: "
+          f"{'embedded' if audio_norm is not None else 'absent'})")
     return out
 
 

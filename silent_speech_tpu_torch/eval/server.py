@@ -7,17 +7,19 @@ JSON contract (arrays as nested lists):
 - ``POST /v1/recognize``  {"emg": (T,112), "raw_emg": (T*8,8)}
                           → {"log_probs": (T,38), "text": "..."}
 - ``POST /v1/transduce``  {"emg": ..., "raw_emg": ..., "session_ids": (T,)}
-                          → {"mel": (T,80)}
+                          → {"mel": (T,80)}, plus {"audio": (T·hop,)}
+                          when a vocoder bundle is attached
 
-A malformed request gets 400. The vocoder (``audio`` in the transduce
-reply) is not ported yet. Requests are handled on threads; the forwards
-run one at a time on the card.
+A malformed request gets 400, and so does a vocoded request when the
+transduction bundle carries no mel normalizer. Requests are handled on
+threads; the forwards run one at a time on the card.
 
 Run::
 
     python -m silent_speech_tpu_torch.eval.server --port 8008 \
         --recognition_bundle rec_serving/ \
-        --transduction_bundle trans_serving/ [--device cuda]
+        --transduction_bundle trans_serving/ \
+        [--vocoder_bundle voc_serving/] [--device cuda]
 """
 
 from __future__ import annotations
@@ -39,10 +41,12 @@ class ServingServer:
 
     def __init__(self, recognition: Optional[ServingBundle] = None,
                  transduction: Optional[ServingBundle] = None,
+                 vocoder: Optional[ServingBundle] = None,
                  host: str = "127.0.0.1", port: int = 0):
         self.bundles = {}
         for kind, bundle in (("recognition", recognition),
-                             ("transduction", transduction)):
+                             ("transduction", transduction),
+                             ("vocoder", vocoder)):
             if bundle is not None:
                 if bundle.kind != kind:
                     raise ValueError(f"a {bundle.kind} bundle was passed "
@@ -119,9 +123,20 @@ class ServingServer:
         bundle = self._bundle("transduction")
         emg, raw = self._arrays(req)
         sess = np.asarray(req["session_ids"], np.int64)
+        voc = self.bundles.get("vocoder")
+        if voc is not None and not bundle.has_normalizer:
+            raise ValueError(
+                "vocoding needs mel denormalization stats: re-export "
+                "the transduction bundle with audio_normalizer (the "
+                "CLI embeds them when --normalizers_file exists)")
         with self._model_lock:
             mel = bundle.predict(emg, raw, sess)
-        return {"mel": mel.tolist()}
+            audio = (None if voc is None
+                     else voc.vocode(bundle.denormalize(mel)))
+        out = {"mel": mel.tolist()}
+        if audio is not None:
+            out["audio"] = audio.tolist()
+        return out
 
     # ---------------- lifecycle ----------------------------------------
 
@@ -143,6 +158,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         description="Serve the port's bundles over HTTP.")
     ap.add_argument("--recognition_bundle")
     ap.add_argument("--transduction_bundle")
+    ap.add_argument("--vocoder_bundle")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8008)
     ap.add_argument("--device", default="cuda",
@@ -154,6 +170,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     server = ServingServer(recognition=load(args.recognition_bundle),
                            transduction=load(args.transduction_bundle),
+                           vocoder=load(args.vocoder_bundle),
                            host=args.host, port=args.port)
     print(f"serving {sorted(server.bundles)} on "
           f"http://{args.host}:{server.port}", flush=True)

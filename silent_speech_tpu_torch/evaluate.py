@@ -17,7 +17,7 @@ phoneme accuracy: …`` and the most confused phoneme pairs to
 takes paths separated by spaces or commas. ``--dev`` evaluates the dev
 split instead of the test split. It runs on the card unless ``--device
 cpu``. Without ``--hifigan_checkpoint`` it stops there, as the JAX CLI
-does; the vocoder, the wavs and the ASR judge are not ported yet, so a
+does; the wav synthesis and the ASR judge are not ported yet, so a
 ``--hifigan_checkpoint`` raises ``NotImplementedError``.
 """
 
@@ -39,7 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reference-layout model.pt files to average")
     add_flag(ap, "dev", False, "evaluate dev instead of test", _bool)
     ap.add_argument("--hifigan_checkpoint", default=None,
-                    help="hifi-gan generator checkpoint (not ported yet)")
+                    help="hifi-gan generator checkpoint (synthesis not ported "
+                         "yet)")
     return ap
 
 
@@ -61,9 +62,9 @@ def main(argv: Optional[Sequence[str]] = None):
         raise SystemExit("pass at least one --models checkpoint")
     if args.hifigan_checkpoint is not None:
         raise NotImplementedError(
-            "--hifigan_checkpoint: the port has no vocoder yet, so no wav "
-            "synthesis or ASR judge (ROADMAP.md section 1, slice 4a); "
-            "evaluate without it for the loss and phoneme accuracy")
+            "--hifigan_checkpoint: the port has no wav synthesis or ASR "
+            "judge yet (ROADMAP.md section 1, slice 5); evaluate without "
+            "it for the loss and phoneme accuracy")
     device = resolve_device(args.device)  # no card: raise before any work
     model_cfg, data_cfg, train_cfg = configs_from_args(args)
     setup_run_logging(train_cfg.output_directory, filename="eval_log.txt")

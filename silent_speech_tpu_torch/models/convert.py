@@ -13,6 +13,11 @@ The input is the tree with numpy leaves; the output loads into
 ``models.encoder.EMGEncoder`` with ``strict=True``. With ``batch_stats``
 None (a gradient tree, which has no statistics) the running statistics are
 left out.
+
+The vocoder's trees map the same way: ``hifigan_params_to_torch`` gives the
+official HiFi-GAN generator state dict (the inverse of the JAX package's
+``hifigan_torch_to_params``), ``discriminator_params_to_torch`` the port's
+discriminator names (the Flax module names, dot-joined).
 """
 
 from __future__ import annotations
@@ -79,3 +84,47 @@ def jax_to_torch(params: dict, batch_stats: Optional[dict] = None
     if "w_aux" in params:
         dense("w_aux", params["w_aux"])
     return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def _conv(out: dict, prefix: str, p: dict) -> None:
+    """A flax/lax conv kernel (*spatial, Cin/g, Cout) → torch's
+    (Cout, Cin/g, *spatial)."""
+    k = np.asarray(p["kernel"])
+    out[f"{prefix}.weight"] = torch.tensor(np.ascontiguousarray(
+        np.moveaxis(k, (-1, -2), (0, 1))))
+    out[f"{prefix}.bias"] = torch.tensor(np.asarray(p["bias"]))
+
+
+def hifigan_params_to_torch(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """A JAX generator tree (``generator_apply``'s) → the official
+    checkpoint's state dict for ``models.hifigan.Generator``: conv kernels
+    (K, Cin, Cout) → (Cout, Cin, K); the ``ups_*`` kernels already carry
+    torch's ConvTranspose1d layout (Cin, Cout, K)."""
+    out: Dict[str, torch.Tensor] = {}
+    _conv(out, "conv_pre", params["conv_pre"])
+    _conv(out, "conv_post", params["conv_post"])
+    nk = len(cfg.resblock_kernel_sizes)
+    names = ("convs1", "convs2") if cfg.resblock == "1" else ("convs",)
+    for i in range(len(cfg.upsample_rates)):
+        up = params[f"ups_{i}"]
+        out[f"ups.{i}.weight"] = torch.tensor(np.asarray(up["kernel"]))
+        out[f"ups.{i}.bias"] = torch.tensor(np.asarray(up["bias"]))
+        for j in range(nk):
+            blk = params[f"res_{i}_{j}"]
+            for d in range(len(cfg.resblock_dilation_sizes[j])):
+                for name in names:
+                    _conv(out, f"resblocks.{i * nk + j}.{name}.{d}",
+                          blk[f"{name}_{d}"])
+    return out
+
+
+def discriminator_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
+    """A Flax ``HiFiGANDiscriminators`` tree → the state dict of
+    ``models.hifigan_discriminators.HiFiGANDiscriminators``: ``mpd_{p}``
+    kernels (kh, kw, Cin, Cout) → (Cout, Cin, kh, kw), ``msd_{i}`` kernels
+    (k, Cin/g, Cout) → (Cout, Cin/g, k)."""
+    out: Dict[str, torch.Tensor] = {}
+    for sub, convs in params.items():
+        for name, p in convs.items():
+            _conv(out, f"{sub}.{name}", p)
+    return out

@@ -92,7 +92,6 @@ def transduction_loss(pred: torch.Tensor, phoneme_pred: torch.Tensor, batch,
       matmul_dtype:  dtype of the loss interior (None = float32).
     """
     cdt = torch.float32 if matmul_dtype is None else matmul_dtype
-    d_out = pred.shape[-1]
     idx = batch.utt_gather_idx
     utt_pred = gather_utterances(pred.to(cdt), idx)           # (U, T, 80)
     utt_phone = gather_utterances(phoneme_pred.to(cdt), idx)  # (U, T, 48)
@@ -122,13 +121,15 @@ def transduction_loss(pred: torch.Tensor, phoneme_pred: torch.Tensor, batch,
             alignment_k, _ = dtw_align_batch(
                 costs_t, tgt_len[:k].clamp_min(1), utt_len[:k].clamp_min(1))
         align_idx = alignment_k.long()
-        aligned_pred = utt_pred[:k].gather(
-            1, align_idx[:, :, None].expand(-1, -1, d_out))
+        # the path repeats predicted frames; advanced indexing's backward
+        # sorts the indices and sums each frame's repeats in a fixed
+        # order, where gather's scatter-adds with atomics on the card
+        rows = torch.arange(k, device=pred.device)[:, None]
+        aligned_pred = utt_pred[:k][rows, align_idx]          # (K, T, 80)
         diff_k = y[:k] - aligned_pred
         picked_dist = torch.sqrt(torch.clamp(
             (diff_k * diff_k).float().sum(-1), min=1e-12))
-        aligned_lsm = lsm[:k].gather(
-            1, align_idx[:, :, None].expand(-1, -1, lsm.shape[-1]))
+        aligned_lsm = lsm[:k][rows, align_idx]                # (K, T, 48)
         picked_lp = aligned_lsm.gather(2, y_phone_idx[:k])[..., 0]
         picked = picked_dist + w * (-picked_lp.float())
         silent_k = torch.where(tgt_mask[:k], picked, 0.0).sum(1)

@@ -34,7 +34,6 @@ explicit CPU ``torch.Generator``s. It runs on ``cuda`` unless given
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import time
@@ -53,7 +52,7 @@ from ..eval.decode import (beam_ctc_decode, greedy_ctc_decode,
                            native_beam_usable)
 from ..models.encoder import EMGEncoder
 from ..text import TextTransform, wer
-from ..utils.device import resolve_device
+from ..utils.device import deterministic_cudnn, resolve_device
 from .checkpoint import (checkpoint_exists, export_reference_checkpoint,
                          restore_checkpoint, save_checkpoint)
 from .losses import ctc_loss
@@ -65,20 +64,6 @@ TEXT_CAP = 128   # characters an utterance may have on the device path
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN's deterministic convolution algorithms inside, forward and
-    backward: its default weight-gradient algorithms sum in an order that
-    changes between calls. With them and the port's CTC, two micro-steps
-    from one state on one batch give bit-equal gradients, as JAX's do."""
-    old = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = old
 
 
 class RecognitionTrainer:

@@ -39,7 +39,7 @@ from ..data.sampler import SizeAwareSampler
 from ..models.encoder import EMGEncoder
 from ..ops.dtw import dtw_align_batch
 from ..phonemes import NUM_PHONES
-from ..utils.device import resolve_device
+from ..utils.device import deterministic_cudnn, resolve_device
 from .checkpoint import (checkpoint_exists, export_reference_checkpoint,
                          restore_checkpoint, save_checkpoint)
 from .losses import TransductionLossOut, transduction_loss
@@ -130,8 +130,11 @@ class TransductionTrainer:
             raise RuntimeError("call init_state() before a training step")
         for p in self.model.parameters():
             p.grad = None
-        out = self._loss(db, n_silent, True, matmul_dtype=self.dtype)
-        out.loss.backward()
+        # deterministic convolutions: two steps from one state on one
+        # batch give bit-equal gradients on the card, as in JAX
+        with deterministic_cudnn():
+            out = self._loss(db, n_silent, True, matmul_dtype=self.dtype)
+            out.loss.backward()
         self.optimizer.step(lr)
         return out._replace(loss=out.loss.detach())
 

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 from typing import Optional, Union
 
@@ -18,6 +19,21 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "CUDA was requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic convolution algorithms inside, forward and
+    backward: its default weight-gradient algorithms sum in an order that
+    changes between calls. The trainers run their steps under it, so that
+    two steps from one state on one batch give bit-equal gradients on the
+    card, as JAX's do."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
 
 
 def card_info(device: Union[str, torch.device] = "cuda") -> str:

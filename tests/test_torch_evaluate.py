@@ -209,7 +209,7 @@ def test_cli_evaluates_an_ensemble_on_the_cpu(corpus, tmp_path):
 
 def test_cli_refuses_a_vocoder_and_an_empty_ensemble(corpus, tmp_path):
     ours_cfg, _ = corpus
-    with pytest.raises(NotImplementedError, match="slice 4a"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         evaluate.main(_cli_args(ours_cfg, tmp_path, ["m.pt"])
                       + ["--hifigan_checkpoint", "g.pt"])
     with pytest.raises(SystemExit, match="at least one --models"):

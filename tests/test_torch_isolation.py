@@ -8,9 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from silent_speech_tpu_torch import (bench, evaluate, make_normalizers,
-                                     make_testset, recognition_model,
-                                     transduction_model)
+from silent_speech_tpu_torch import (bench, bench_vocoder, evaluate,
+                                     finetune_vocoder, make_normalizers,
+                                     make_testset, make_vocoder_trainset,
+                                     recognition_model, transduction_model)
 from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
                                             RecognitionTrainConfig,
                                             TransductionTrainConfig)
@@ -19,9 +20,12 @@ from silent_speech_tpu_torch.data.dataset import ExampleList
 from silent_speech_tpu_torch.data.synthetic import generate_corpus
 from silent_speech_tpu_torch.eval import export, server
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
+from silent_speech_tpu_torch.models.hifigan import (HiFiGANConfig, Vocoder,
+                                                    init_generator)
 from silent_speech_tpu_torch.ops import build
 from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
 from silent_speech_tpu_torch.train.transduction import TransductionTrainer
+from silent_speech_tpu_torch.train.vocoder import VocoderTrainer
 from silent_speech_tpu_torch.utils import device as device_module
 from silent_speech_tpu_torch.utils import native
 from silent_speech_tpu_torch.utils.device import card_info, resolve_device
@@ -233,3 +237,50 @@ def test_the_host_tools_touch_no_device(tmp_path, monkeypatch):
     assert dataset_module.main(args + ["--smoke_items", "2"]) == 2
     assert (tmp_path / "split.json").is_file()
     assert (tmp_path / "n.pkl").is_file()
+
+
+def test_vocoder_entry_points_raise_without_a_card(no_card, tmp_path):
+    cfg = HiFiGANConfig(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+                        upsample_initial_channel=16,
+                        resblock_kernel_sizes=(3,),
+                        resblock_dilation_sizes=((1,),))
+    gen = init_generator(cfg, torch.Generator().manual_seed(0))
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    torch.save({"generator": gen.state_dict()}, ckpt / "g.pt")
+    cfg.to_json(str(ckpt / "config.json"))
+    voc_dir = export.save_vocoder_bundle(Vocoder(str(ckpt / "g.pt"),
+                                                 device="cpu"),
+                                         str(tmp_path / "voc"))
+    out = tmp_path / "out"
+    for call in (lambda: Vocoder(str(ckpt / "g.pt")),
+                 lambda: export.ServingBundle.load(voc_dir),
+                 lambda: server.main(["--vocoder_bundle", voc_dir,
+                                      "--port", "0"]),
+                 lambda: VocoderTrainer(),
+                 lambda: bench_vocoder.main([]),
+                 lambda: finetune_vocoder.main(
+                     ["--data_directory", str(tmp_path), "--output_directory",
+                      str(out)]),
+                 lambda: make_vocoder_trainset.main(
+                     ["--model", "model.pt", "--output_directory",
+                      str(out)])):
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            call()
+    assert not out.exists()   # raised before any work
+
+
+def test_vocoder_runs_on_the_cpu_only_when_asked(tmp_path):
+    trainer = VocoderTrainer(
+        gen_cfg=HiFiGANConfig(upsample_rates=(4, 2),
+                              upsample_kernel_sizes=(8, 4),
+                              upsample_initial_channel=16,
+                              resblock_kernel_sizes=(3,),
+                              resblock_dilation_sizes=((1,),)),
+        disc_periods=(2,), disc_scales=1, disc_width_div=8, device="cpu")
+    assert {p.device.type for p in trainer.generator.parameters()} | {
+        p.device.type for p in trainer.disc.parameters()} == {"cpu"}
+    trainer.export_torch(str(tmp_path / "g.pt"))
+    trainer.gen_cfg.to_json(str(tmp_path / "config.json"))
+    vocoder = Vocoder(str(tmp_path / "g.pt"), device="cpu")
+    assert vocoder(np.zeros((3, 80), np.float32)).shape == (24,)

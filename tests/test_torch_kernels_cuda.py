@@ -591,3 +591,92 @@ def test_recognition_micro_steps_are_bit_equal(card):
     differ = [n for n, g in runs[0][1].items()
               if not torch.equal(g, runs[1][1][n])]
     assert not differ, differ
+
+
+def _transduction_examples():
+    rng = np.random.default_rng(5)
+    out = []
+    for i, (t, silent) in enumerate(((60, True), (45, True), (70, False))):
+        ex = {"emg": np.zeros((t, 112), np.float32),
+              "raw_emg": rng.normal(size=(8 * t, 8)).astype(np.float32),
+              "session_ids": np.zeros(t, np.int64), "silent": silent,
+              "text": "a b", "text_int": np.zeros(3, np.int64)}
+        t_tgt = t + 7 if silent else t
+        key = "parallel_voiced_audio_features" if silent \
+            else "audio_features"
+        ex[key] = rng.normal(size=(t_tgt, 80)).astype(np.float32)
+        ex["phonemes"] = rng.integers(0, 48, size=t_tgt)
+        out.append(ex)
+    return out
+
+
+def test_transduction_steps_are_bit_equal(card):
+    # two steps from the same state on the same batch (silent rows, so the
+    # DTW path's repeated frames), dropout and shift from the same seeds:
+    # equal losses and gradients under cuDNN's deterministic algorithms
+    batch = _tiny_trainer("cpu")._pack(_transduction_examples())
+    assert batch.num_silent
+    runs = []
+    for _ in range(2):
+        trainer = _tiny_trainer("cuda")
+        out = trainer.train_step(batch, 1e-3)
+        torch.cuda.synchronize()
+        runs.append((out.loss, {n: p.grad for n, p in
+                                trainer.model.named_parameters()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    differ = [n for n, g in runs[0][1].items()
+              if not torch.equal(g, runs[1][1][n])]
+    assert not differ, differ
+
+
+TINY_VOCODER = dict(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+                    upsample_initial_channel=16, resblock_kernel_sizes=(3,),
+                    resblock_dilation_sizes=((1, 2),))
+
+
+def test_gan_steps_are_bit_equal(card):
+    from silent_speech_tpu_torch.dsp.mel import MelConfig
+    from silent_speech_tpu_torch.models.hifigan import HiFiGANConfig
+    from silent_speech_tpu_torch.train.vocoder import VocoderTrainer
+
+    rng = np.random.default_rng(6)
+    mels = (0.1 * rng.normal(size=(4, 32, 80))).astype(np.float32)
+    audio = (0.3 * rng.normal(size=(4, 32 * 8))).astype(np.float32)
+    runs = []
+    for _ in range(2):
+        trainer = VocoderTrainer(
+            gen_cfg=HiFiGANConfig(**TINY_VOCODER),
+            mel_cfg=MelConfig(n_fft=64, hop_size=8, win_size=64),
+            disc_periods=(2, 3), disc_scales=2, disc_width_div=8,
+            device="cuda")
+        metrics = trainer.train_step(mels, audio, 1e-3)
+        runs.append((metrics, {**trainer.generator.state_dict(),
+                               **trainer.disc.state_dict()}))
+    assert all(torch.equal(runs[0][0][k], runs[1][0][k]) for k in runs[0][0])
+    differ = [n for n, w in runs[0][1].items()
+              if not torch.equal(w, runs[1][1][n])]
+    assert not differ, differ
+
+
+def test_generator_on_card_matches_cpu(card):
+    from silent_speech_tpu_torch.models.hifigan import (HiFiGANConfig,
+                                                        init_generator)
+
+    gen = init_generator(HiFiGANConfig(), torch.Generator().manual_seed(0))
+    mel = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(1, 32, 80)).astype(np.float32))
+    with torch.no_grad():
+        ref = gen(mel)
+        out = gen.to("cuda")(mel.to("cuda")).cpu()
+    assert out.shape == (1, 32 * 256)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+def test_log_mel_on_card_matches_cpu(card):
+    from silent_speech_tpu_torch.dsp.mel import torch_log_mel_spectrogram
+
+    audio = torch.from_numpy((0.3 * np.random.default_rng(8).normal(
+        size=(2, 8192))).astype(np.float32))
+    ref = torch_log_mel_spectrogram(audio)
+    out = torch_log_mel_spectrogram(audio.to("cuda")).cpu()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
