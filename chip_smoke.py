@@ -23,7 +23,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    CTC forward and backward (optax's clamped lattice, ``csrc/ctc.cu``) at
    a recognition micro-step's shape with padding rows, a repeat and a last
    label of 0, with and without an infeasible row; two calls must be
-   bit-equal and the gradient exactly 0 where none flows;
+   bit-equal and the gradient exactly 0 where none flows; and the zero-phase
+   filter chain (``csrc/filtfilt.cu``: seven notches and the 2 Hz
+   high-pass in one launch) at 8 utterances x 8 channels of ragged lengths
+   (one at the high-pass's padlen + 1), torch.equal to its plain version
+   on the card, in one launch and split in two, and between two calls;
 3. serve: init a full-width transduction model and a full-width
    recognition model from a seed, save each as a reference-layout
    ``model.pt``, export both with the export CLI, load the bundles on the
@@ -89,10 +93,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one utterance; an f32 micro-step with the kernels against the plain
    attention; the trained ``model.pt`` exported and one ``/v1/recognize``
    answered from it (6 forward launches);
+6c. streaming at full width: phase 6's ``model.pt`` loaded strictly into
+   the streaming recognizer, fed a seeded synthetic board in hops of a
+   simulated clock; 6 forward attention launches a recompute, and the final
+   transcript equal to the offline greedy decode of the same samples; the
+   latency of a recompute at 5 s and 20 s buffers; the synthesizer (a
+   full-width transducer from a seed, the seeded V1 vocoder) equal to the
+   offline ``vocode(inverse(predict))``; ``python -m
+   silent_speech_tpu_torch.eval.streaming --seconds 2 --model model.pt``
+   exits 0;
 6b. the vocoder: ``python -m silent_speech_tpu_torch.bench_vocoder``'s
    JSON line (full V1, batch 8 x 10 s); a full-width GAN trainer (V1
    generator, MPD 2/3/5/7/11 and a 3-scale MSD, batch 16 of 32-frame
-   segments of wavs written under ``build/``) takes 2 warm-up and 5 timed
+   segments of wavs written under ``build/``) takes 2 warm-up and 3 timed
    steps (steps/s, then device busy a step and idle share under the
    profiler), every metric finite and both models moving, no ported kernel
    launched; from a saved state, a step repeated on one batch and the same
@@ -100,12 +113,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    for bit;
 7. from disk, through the entry points a user calls: the port's own
    generator writes a learnable FLAC corpus (2 voiced, 2 silent and 1
-   non-parallel session of 6 utterances) under ``build/``;
+   non-parallel session of 4 utterances) under ``build/``;
    ``make_testset`` and ``make_normalizers`` run on it; the transduction
-   CLI trains one epoch at the defaults (d=768, 6 layers, 8 heads) and
-   writes ``model.pt``; ``evaluate --models model.pt model.pt`` must give
-   the numbers of ``model.pt`` alone, with 2 x 6 forward attention
-   launches an eval group; the recognition CLI trains one epoch (its
+   CLI trains one epoch at the defaults (d=768, 6 layers, 8 heads), its
+   corpus featurized on the card (one filter launch), with
+   ``--hifigan_checkpoint`` at the seeded V1 generator: it writes
+   ``model.pt``, the epoch's wav and every dev utterance's, and logs the
+   absent ASR judge; ``featurize_on_device`` on the card is held to the
+   host ``EMGDataset`` path and the corpus build is timed both ways in
+   turns; ``evaluate --models model.pt model.pt`` must give the numbers
+   of ``model.pt`` alone (with the vocoder), with 2 x 6 forward attention
+   launches an eval group, and one of its wavs must equal
+   ``vocode(inverse(predict))`` computed here; the recognition CLI trains
+   one epoch, its corpus featurized on the card (its
    validation WER printed as read) and ``--evaluate_saved`` scores its
    ``model.pt``; ``make_vocoder_trainset`` writes the aligned predictions
    of the training and dev utterances from the transduction CLI's
@@ -130,7 +150,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    called by the port), the CTC forward and backward on a recognition
    micro-step's own inputs (against ``F.ctc_loss`` forward and backward
    on its rows with text, timed as the library column, never called by
-   the port), and
+   the port), the filter chain at phase 7's corpus build's own inputs
+   (also in ns a step of its dependent chain), and
    profile one forward and one training step (device busy time, idle
    share, kernels by time).
 
@@ -157,7 +178,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 BUCKETS = (256, 512, 1024, 2048)
 REQUEST_T = (200, 450, 700, 1500)  # one utterance length per bucket
-TIMED_REQUESTS = 5                 # per kind and length, after one warm-up
+TIMED_REQUESTS = 2                 # per kind and length, after one warm-up
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor cores
             "float32": 67e12}      # f32 outside the tensor cores
@@ -220,9 +241,32 @@ CTC_GRAD_RTOL = 1e-5
 # the on-disk phase's corpus: the port's own generator, learnable signals,
 # FLAC audio; then dev and test splits of DISK_SPLIT sentences each
 DISK_CORPUS = dict(n_voiced_sessions=2, n_silent_sessions=2, n_nonparallel=1,
-                   utterances_per_session=6, audio_format="flac",
+                   utterances_per_session=4, audio_format="flac",
                    learnable=True)
 DISK_SPLIT = 3
+# the filter chain's check: ragged lengths, one at the high-pass's padlen
+# + 1 (3 x 4 taps + 1), several not a multiple of 32; the plain loop costs
+# ~10 launches a step, so T stays short
+FILTER_LENGTHS = [13, 1024, 1000, 777, 500, 31, 999, 1023]
+FILTER_T = 1024
+# the corpus featurized on the card against the host EMGDataset path: the
+# float32 high-pass drifts from scipy's float64 in proportion to the
+# signal. The JAX test's atol 5e-2 (tests/test_jax_featurize.py:72-83)
+# holds on its noise corpus (max |raw| ~7); on this learnable corpus (max
+# |raw| ~29) JAX's own featurize_on_device is 0.2016 from the host path
+# and the port's 0.1954 (both on the CPU), so raw_emg is bound relative
+# to the host signal's largest value, with the correlation of the
+# port-vs-JAX bound; audio_features keep the JAX test's atol
+HOST_RAW_REL, HOST_MIN_CORR, HOST_MEL_ATOL = 1e-2, 0.9999, 2e-2
+# a wav read back against the audio it was written from: PCM16 truncates
+# x * 32767 and reads back over 32768
+WAV_ATOL = 2.0 / 32767
+# streaming: hops of the simulated board clock, seconds streamed into the
+# recognizer and the synthesizer, timed recomputes a buffer length
+STREAM_HOP_S = 0.5
+STREAM_SECONDS = 4.0
+STREAM_SYNTH_SECONDS = 2.0
+STREAM_TIMED = 3
 # evaluate with model.pt twice against model.pt alone: the mean of two
 # equal outputs is exact and every kernel of the eval forward is
 # deterministic, so the loss to 1e-6 relative, accuracy and confusion equal
@@ -233,7 +277,7 @@ REC_BEAM_CHECK = 16
 # the vocoder bundle's mel buckets: up to 2048 frames, so that the
 # 1500-frame request vocodes (JAX's default buckets stop at 1024)
 VOCODER_BUCKETS = (128, 256, 512, 1024, 2048)
-VOCODED_TIMED = 3                  # vocoded requests per length, after one
+VOCODED_TIMED = 2                  # vocoded requests per length, after one
 # the HiFi-GAN generator in f32 on the card vs on the CPU (TF32 off), on
 # VOCODER_CPU_FRAMES frames: summation order only, at tanh outputs in ±1
 VOCODER_ATOL = 1e-4
@@ -244,7 +288,7 @@ AB_ROUNDS, AB_STEPS = 3, 3
 # the GAN phase: the published batch of 16 segments of 32 frames, and
 # wavs of the phase's own making
 GAN_BATCH = 16
-GAN_WARMUP, GAN_TIMED, GAN_PROFILED = 2, 5, 2
+GAN_WARMUP, GAN_TIMED, GAN_PROFILED = 2, 3, 1
 GAN_WAVS, GAN_WAV_SECONDS = 4, 2.0
 
 
@@ -639,7 +683,58 @@ def check_kernels():
         f"{dp_ms:.4f} ms ({dp_ms * 1e6 / diagonals:.1f} ns a diagonal)")
     del c, costs, ties, dtw_cases
     check_ctc(errs)
+    check_filtfilt(errs)
     return errs
+
+
+def filter_inputs(lengths, t_pad, seed):
+    """(B, t_pad, 8) float32 EMG of σ = 100 on the card, zero past each
+    utterance's length, and the (B,) lengths."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = np.zeros((len(lengths), t_pad, 8), np.float32)
+    for u, n in enumerate(lengths):
+        x[u, :n] = rng.normal(size=(n, 8)) * 100
+    return torch.from_numpy(x).cuda(), torch.tensor(lengths)
+
+
+def check_filtfilt(errs):
+    """Phase 2, the filter chain (csrc/filtfilt.cu): bit-equal to its plain
+    version on the card at ragged lengths, in one launch and split in two,
+    and between two calls."""
+    import torch
+    from silent_speech_tpu_torch.dsp.device_pipeline import filter_coeffs
+    from silent_speech_tpu_torch.ops.filtfilt import (filtfilt_chain,
+                                                      filtfilt_chain_plain)
+
+    coeffs = filter_coeffs()
+    x, lengths = filter_inputs(FILTER_LENGTHS, FILTER_T, SEED)
+    out = filtfilt_chain(x, lengths, coeffs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = filtfilt_chain_plain(x, lengths, coeffs)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = (out - ref).abs().max().item()
+    split = torch.cat([filtfilt_chain(x[:3], lengths[:3], coeffs),
+                       filtfilt_chain(x[3:], lengths[3:], coeffs)])
+    again = filtfilt_chain(x, lengths, coeffs)
+    pad_zero = all(not out[u, n:].any()
+                   for u, n in enumerate(FILTER_LENGTHS))
+    ok = (torch.equal(out, ref) and torch.equal(out, split)
+          and torch.equal(out, again) and pad_zero)
+    log(f"[kernel] filtfilt_chain {len(coeffs)} filters B={len(lengths)} "
+        f"T_pad={FILTER_T} C=8 lengths {FILTER_LENGTHS}: against the plain "
+        f"version (on the card, {plain_s:.2f} s) torch.equal "
+        f"{torch.equal(out, ref)} (max_abs_err {err:.3g}); one launch "
+        f"against two {torch.equal(out, split)}; two calls "
+        f"{torch.equal(out, again)}; rows past each length 0: {pad_zero} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("filtfilt_chain disagrees with its plain "
+                             "version, or depends on the grouping")
+    errs["filtfilt_chain"] = err
 
 
 def ctc_inputs(seed, infeasible=False, u=64, t=1024, s=128, n_real=19):
@@ -1049,17 +1144,20 @@ def swapped(module, name, fn):
 def reset_launches():
     from silent_speech_tpu_torch.ops.ctc import ctc_nll
     from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
+    from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
     from silent_speech_tpu_torch.ops.rel_attention import (
         rel_attention, rel_attention_bwd)
 
     rel_attention.launches = rel_attention_bwd.launches = 0
     dtw_align_batch.launches = dtw_align_batch.dp_only_launches = 0
     ctc_nll.launches = ctc_nll.backward_launches = 0
+    filtfilt_chain.launches = 0
 
 
 def read_launches():
     from silent_speech_tpu_torch.ops.ctc import ctc_nll
     from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
+    from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
     from silent_speech_tpu_torch.ops.rel_attention import (
         rel_attention, rel_attention_bwd)
 
@@ -1067,13 +1165,14 @@ def read_launches():
             "rel_attention_bwd": rel_attention_bwd.launches,
             "dtw_align": dtw_align_batch.launches,
             "dtw_align_dp_only": dtw_align_batch.dp_only_launches,
-            "ctc": ctc_nll.launches, "ctc_bwd": ctc_nll.backward_launches}
+            "ctc": ctc_nll.launches, "ctc_bwd": ctc_nll.backward_launches,
+            "filtfilt_chain": filtfilt_chain.launches}
 
 
 def launch_counts(**counts):
     """A ``read_launches()`` dict with ``counts`` and 0 for the rest."""
     names = ("rel_attention_fwd", "rel_attention_bwd", "dtw_align",
-             "dtw_align_dp_only", "ctc", "ctc_bwd")
+             "dtw_align_dp_only", "ctc", "ctc_bwd", "filtfilt_chain")
     return {name: counts.get(name, 0) for name in names}
 
 
@@ -1952,6 +2051,151 @@ def recognition_run(card, work):
     return fit_launches, serve_launches, captured["args"]
 
 
+def streaming_run(card, model_pt, work):
+    """Phase 6c, streaming at full width: phase 6's trained recognizer fed
+    a seeded synthetic board in hops on a simulated clock (6 forward
+    attention launches a recompute), its final transcript against the
+    offline greedy decode of the same samples; the synthesizer with the
+    seeded V1 vocoder against the offline vocode(inverse(predict)); the
+    latency of a recompute at 5 s and 20 s buffers; the demo CLI. Returns
+    the launches of the streamed recomputes."""
+    import subprocess
+    import types
+
+    import torch
+    from silent_speech_tpu_torch.capture import recorder
+    from silent_speech_tpu_torch.config import ModelConfig
+    from silent_speech_tpu_torch.data.normalizers import load_normalizers
+    from silent_speech_tpu_torch.eval import streaming
+    from silent_speech_tpu_torch.eval.decode import greedy_ctc_decode
+    from silent_speech_tpu_torch.models.hifigan import Vocoder
+    from silent_speech_tpu_torch.train.transduction import \
+        TransductionTrainer
+
+    t_phase = time.perf_counter()
+    layers = ModelConfig().num_layers
+    # the demo as a user runs it, in a process of its own beside the
+    # checks below (the latency is timed after it has ended)
+    t_demo = time.perf_counter()
+    demo = subprocess.Popen(
+        [sys.executable, "-m", "silent_speech_tpu_torch.eval.streaming",
+         "--seconds", "2", "--model", model_pt], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        rec = streaming.demo_trainer(model_pt, "cuda")   # strict, full width
+
+        def board_chunks(seconds):
+            """The board's samples, one (n, 8) chunk a hop of a simulated
+            clock."""
+            clock = [0.0]
+            fake_time = types.SimpleNamespace(monotonic=lambda: clock[0])
+            with swapped(recorder, "time", fake_time):
+                board = recorder.SyntheticBoard(seed=SEED)
+                board.start_stream()
+                for _ in range(int(round(seconds / STREAM_HOP_S))):
+                    clock[0] += STREAM_HOP_S
+                    yield board.get_board_data()[:8].T
+
+        recomputes = []
+        predict = rec.predict_logits
+        rec.predict_logits = lambda ex: recomputes.append(1) or predict(ex)
+        stream = streaming.StreamingRecognizer(rec, hop_s=STREAM_HOP_S)
+        fed = []
+        reset_launches()
+        for chunk in board_chunks(STREAM_SECONDS):
+            fed.append(chunk)
+            stream.feed(chunk)
+            stream.transcript()
+        text = stream.transcript(force=True)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        del rec.predict_logits
+        window = np.concatenate(fed)[-stream.max_window:]
+        offline = rec.text_transform.int_to_text(greedy_ctc_decode(
+            rec.predict_logits(streaming.featurize_raw_window(window)),
+            rec.blank_id))
+        expected = launch_counts(rel_attention_fwd=layers * len(recomputes))
+        ok = text == offline and launches == expected and len(recomputes) > 1
+        log(f"[stream] recognizer from phase 6's model.pt (d=768, {layers} "
+            f"layers), a seeded board in hops of {STREAM_HOP_S} s for "
+            f"{STREAM_SECONDS} s ({window.shape[0]} samples, "
+            f"{len(recomputes)} recomputes): transcript {text[:40]!r} equal to "
+            f"the offline greedy decode: {text == offline}; launches {launches} "
+            f"(expected {expected}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the streamed transcript is not the offline "
+                                 "decode, or launched otherwise")
+
+        # the synthesizer: a full-width transducer from SEED, the seeded V1
+        trans = TransductionTrainer(device="cuda")
+        trans.init_state(SEED)
+        norm_path = os.path.join(work, "stream_normalizers.pkl")
+        write_normalizers(norm_path)
+        mfcc_norm, _ = load_normalizers(norm_path)
+        voc_path, _ = write_seeded_vocoder(os.path.join(work, "stream_hifigan"))
+        vocoder = Vocoder(voc_path, device="cuda")
+        synth = streaming.StreamingSynthesizer(trans, mfcc_norm, vocoder,
+                                               hop_s=STREAM_HOP_S)
+        fed = []
+        for chunk in board_chunks(STREAM_SYNTH_SECONDS):
+            fed.append(chunk)
+            synth.feed(chunk)
+            synth.audio()
+        audio = synth.audio(force=True)
+        window = np.concatenate(fed)[-synth.max_window:]
+        ex = streaming.featurize_raw_window(window)
+        offline = np.asarray(vocoder(mfcc_norm.inverse(trans.predict(ex))),
+                             np.float32).reshape(-1)
+        ok = (audio.shape == (ex["emg"].shape[0] * 256,)
+              and np.isfinite(audio).all() and np.array_equal(audio, offline))
+        log(f"[stream] synthesizer (d=768 transducer from seed {SEED}, seeded "
+            f"V1 vocoder), {STREAM_SYNTH_SECONDS} s in hops: audio "
+            f"{audio.shape[0]} samples, equal to the offline "
+            f"vocode(inverse(predict)): {np.array_equal(audio, offline)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the streamed audio is not the offline audio")
+        del trans, vocoder, synth
+        torch.cuda.empty_cache()
+
+        out, err = demo.communicate(timeout=300)
+    finally:
+        if demo.poll() is None:   # a check above failed, or the demo hung
+            demo.kill()
+            demo.wait()
+    last = out.strip().split("\r")[-1] if out else ""
+    log(f"[stream] python -m silent_speech_tpu_torch.eval.streaming "
+        f"--seconds 2 --model model.pt (beside the checks above): exit "
+        f"{demo.returncode} in {time.perf_counter() - t_demo:.2f} s, last "
+        f"line {last[:60]!r}")
+    if demo.returncode != 0:
+        raise AssertionError(f"the streaming demo failed:\n{err[-2000:]}")
+
+    latency = {}
+    for seconds in (5, 20):
+        x = np.random.default_rng(SEED).normal(size=(seconds * 1000, 8)) * 30
+        s = streaming.StreamingRecognizer(rec, hop_s=STREAM_HOP_S,
+                                          max_window_s=seconds)
+        s.feed(x)
+        times = []
+        for _ in range(1 + STREAM_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.transcript(force=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        latency[seconds] = median_ms(times[1:])
+    log(f"[time] {card} | streaming recompute latency (host featurization "
+        f"in float64, the full-width forward, the greedy decode), median of "
+        f"{STREAM_TIMED} after one: 5 s buffer {latency[5]:.2f} ms, 20 s "
+        f"buffer {latency[20]:.2f} ms")
+    del rec
+    torch.cuda.empty_cache()
+
+    log(f"[stream] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches, latency
+
+
 def _gan_weights(trainer):
     import torch
 
@@ -2107,10 +2351,17 @@ def disk_run(card, work):
                                          transduction_model)
     from silent_speech_tpu_torch.config import ModelConfig
     from silent_speech_tpu_torch.data.dataset import EMGDataset
+    from silent_speech_tpu_torch.data import device_featurize
+    from silent_speech_tpu_torch.data.device_cache import DeviceCorpus
+    from silent_speech_tpu_torch.data.device_featurize import \
+        featurize_on_device
     from silent_speech_tpu_torch.data.synthetic import generate_corpus
+    from silent_speech_tpu_torch.models.hifigan import Vocoder
+    from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
     from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
     from silent_speech_tpu_torch.train.transduction import \
         TransductionTrainer
+    from silent_speech_tpu_torch.utils.audio_io import read_audio
 
     t_phase = time.perf_counter()
     layers = ModelConfig().num_layers
@@ -2153,9 +2404,17 @@ def disk_run(card, work):
         f"{tools_s:.2f} s; splits of {len(trainset)} training, "
         f"{len(devset)} dev and {len(testset)} test utterances")
 
-    # the transduction CLI: one epoch at the defaults (d=768, 6 layers)
+    # the transduction CLI: one epoch at the defaults (d=768, 6 layers),
+    # its corpus featurized on the card, with the seeded V1 vocoder: the
+    # epoch's wav and every dev utterance's, the judge absent
     run = os.path.join(work, "transduction")
-    steps, evals = [], []
+    voc_path, _ = write_seeded_vocoder(os.path.join(work, "hifigan"))
+    steps, evals, corpus_inputs = [], [], []
+
+    def capture_chain(x, lengths, coeffs):
+        corpus_inputs.append((x, lengths.clone(), coeffs))
+        return filtfilt_chain(x, lengths, coeffs)
+
     reset_launches()
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
@@ -2166,8 +2425,11 @@ def disk_run(card, work):
                                     lambda b, lr: b.num_silent > 0))
         stack.enter_context(counted(TransductionTrainer, "eval_step", evals,
                                     lambda b, model=None: b.num_silent > 0))
-        trainer = transduction_model.main(data + ["--output_directory", run,
-                                                  "--epochs", "1"])
+        stack.enter_context(swapped(device_featurize, "filtfilt_chain",
+                                    capture_chain))
+        trainer = transduction_model.main(data + [
+            "--output_directory", run, "--epochs", "1",
+            "--hifigan_checkpoint", voc_path])
     torch.cuda.synchronize()
     tr_s = time.perf_counter() - t0
     launches = read_launches()
@@ -2176,21 +2438,80 @@ def disk_run(card, work):
              trainer.model_cfg.num_heads)
     del trainer
     torch.cuda.empty_cache()
+    # a predict a vocoded utterance: the epoch's and each dev utterance's
     expected = launch_counts(
-        rel_attention_fwd=layers * (len(steps) + len(evals)),
+        rel_attention_fwd=layers * (len(steps) + len(evals) + 1
+                                    + len(devset)),
         rel_attention_bwd=layers * len(steps),
-        dtw_align=sum(steps) + sum(evals))
+        dtw_align=sum(steps) + sum(evals), filtfilt_chain=1)
     finished = log_lines(os.path.join(run, "log.txt"), "finished epoch")
+    built = log_lines(os.path.join(run, "log.txt"), "building the device")
+    skipped = log_lines(os.path.join(run, "log.txt"), "ASR WER skipped")
+    wavs = ["epoch_0_output.wav"] + [f"example_output_{i}.wav"
+                                     for i in range(len(devset))]
+    missing = [w for w in wavs if not os.path.isfile(os.path.join(run, w))]
     model_pt = os.path.join(run, "model.pt")
     log(f"[disk] transduction CLI, 1 epoch at d={width[0]}, {width[1]} "
-        f"layers, {width[2]} heads: {len(steps)} step(s), {len(evals)} "
-        f"validation batch(es) in {tr_s:.2f} s; {finished}; launches "
-        f"{launches} (expected {expected})")
+        f"layers, {width[2]} heads, --hifigan_checkpoint (seeded V1): "
+        f"{len(steps)} step(s), {len(evals)} validation batch(es) in "
+        f"{tr_s:.2f} s; {built}; {finished}; {len(wavs) - len(missing)} of "
+        f"{len(wavs)} wavs written (the epoch's, {len(devset)} dev); judge: "
+        f"{[line[:60] for line in skipped]}; launches {launches} (expected "
+        f"{expected}: one filter launch for the corpus, 6 forward attention "
+        f"a vocoded utterance)")
     if (width != (768, 6, 8) or not steps or not finished
-            or launches != expected or not os.path.isfile(model_pt)):
+            or launches != expected or not os.path.isfile(model_pt)
+            or missing or not skipped or len(corpus_inputs) != 1
+            or "device featurization" not in " ".join(built)):
         raise AssertionError("the transduction CLI's epoch failed")
 
-    # evaluate: model.pt twice, then alone
+    # the corpus build (featurization and upload) timed both ways in turns,
+    # on fresh datasets (the host path caches its examples); the first
+    # examples of each way are then held to each other
+    build_s, kept = {"device": [], "host": []}, {}
+    for way in ("device", "host", "host", "device"):
+        fresh = EMGDataset(cfg, cache=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        examples = (featurize_on_device(fresh, device="cuda")
+                    if way == "device"
+                    else [fresh[i] for i in range(len(fresh))])
+        DeviceCorpus.build(examples, "cuda")
+        torch.cuda.synchronize()
+        build_s[way].append(time.perf_counter() - t0)
+        kept.setdefault(way, examples)
+    log(f"[time] {card} | corpus build of {len(trainset)} training "
+        f"examples (files, featurization, upload), in turns device, host, "
+        f"host, device: device {build_s['device']} s, host "
+        f"{build_s['host']} s")
+    worst = {"raw_emg": 0.0, "audio_features": 0.0}
+    corr, scale = 1.0, 0.0
+    for i, (got, want) in enumerate(zip(kept["device"], kept["host"])):
+        scale = max(scale, float(np.abs(want["raw_emg"]).max()))
+        for key in ("raw_emg", "audio_features"):
+            if got[key].shape != want[key].shape:
+                raise AssertionError(f"example {i}: {key} shapes differ")
+            worst[key] = max(worst[key],
+                             float(np.abs(got[key] - want[key]).max()))
+        corr = min(corr, float(np.corrcoef(got["raw_emg"].ravel(),
+                                           want["raw_emg"].ravel())[0, 1]))
+        for key in ("text_int", "session_ids", "phonemes"):
+            if not np.array_equal(got[key], want[key]):
+                raise AssertionError(f"example {i}: {key} differs")
+    ok = (worst["raw_emg"] <= HOST_RAW_REL * scale and corr > HOST_MIN_CORR
+          and worst["audio_features"] <= HOST_MEL_ATOL)
+    log(f"[disk] featurize_on_device on the card against the host "
+        f"EMGDataset, {len(kept['device'])} training examples: raw_emg "
+        f"max_abs_err {worst['raw_emg']:.4g} (tolerance {HOST_RAW_REL} x "
+        f"max|raw| {scale:.4g}), correlation {corr:.6f} (> "
+        f"{HOST_MIN_CORR}), audio_features max_abs_err "
+        f"{worst['audio_features']:.4g} (tolerance {HOST_MEL_ATOL}); "
+        f"metadata equal {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the device featurization disagrees with the "
+                             "host path")
+
+    # evaluate: model.pt twice, then alone with the vocoder
     groups = TransductionTrainer(data_cfg=cfg, device="cuda").eval_groups(
         testset)
     silent_groups = sum(any(testset[i]["silent"] for i in g)
@@ -2202,7 +2523,8 @@ def disk_run(card, work):
         t0 = time.perf_counter()
         loss, acc, confusion = evaluate.main(
             data + ["--output_directory", out_dir, "--models",
-                    *[model_pt] * n])
+                    *[model_pt] * n]
+            + (["--hifigan_checkpoint", voc_path] if n == 1 else []))
         results[n] = (loss, acc, confusion, read_launches(),
                       time.perf_counter() - t0,
                       log_lines(os.path.join(out_dir, "eval_log.txt"),
@@ -2216,7 +2538,8 @@ def disk_run(card, work):
     ok = (np.isfinite(loss) and rel <= ENSEMBLE_RTOL and acc == single[1]
           and np.array_equal(confusion, single[2]) and launches == expected
           and single[3] == launch_counts(
-              rel_attention_fwd=layers * len(groups), dtw_align=silent_groups)
+              rel_attention_fwd=layers * (len(groups) + len(testset)),
+              dtw_align=silent_groups)
           and line)
     log(f"[disk] evaluate --models model.pt model.pt on {len(testset)} test "
         f"utterances in {len(groups)} eval group(s), {secs:.2f} s: {line}; "
@@ -2228,6 +2551,33 @@ def disk_run(card, work):
     if not ok:
         raise AssertionError("the 2-model ensemble of one model.pt differs "
                              "from the model alone, or launched otherwise")
+
+    # one of evaluate's wavs against vocode(inverse(predict)) computed here
+    ref = TransductionTrainer(data_cfg=cfg, device="cuda")
+    ref.init_state(SEED)
+    ref.model.load_state_dict(torch.load(model_pt, map_location="cpu",
+                                         weights_only=True), strict=True)
+    want = np.clip(Vocoder(voc_path, device="cuda")(
+        testset.mfcc_norm.inverse(ref.predict(testset[0]))), -1.0, 1.0)
+    del ref
+    got, rate = read_audio(os.path.join(work, "eval1",
+                                        "example_output_0.wav"))
+    n_wavs = sum(os.path.isfile(os.path.join(work, "eval1",
+                                             f"example_output_{i}.wav"))
+                 for i in range(len(testset)))
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float("inf")
+    skipped = log_lines(os.path.join(work, "eval1", "eval_log.txt"),
+                        "ASR WER skipped")
+    ok = (rate == 22050 and err <= WAV_ATOL and n_wavs == len(testset)
+          and skipped)
+    log(f"[disk] evaluate --models model.pt --hifigan_checkpoint: {n_wavs} "
+        f"of {len(testset)} wavs; example_output_0.wav ({got.shape[0]} "
+        f"samples) against vocode(inverse(predict)) computed here: "
+        f"max_abs_err {err:.3g} (tolerance {WAV_ATOL:.3g}, PCM16); judge "
+        f"skipped: {bool(skipped)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("evaluate's vocoded wavs are wrong")
 
     vocoder_launches = disk_vocoder(work, data, model_pt, layers)
 
@@ -2256,7 +2606,7 @@ def disk_run(card, work):
     expected = launch_counts(
         rel_attention_fwd=layers * (len(steps) + len(devset)),
         rel_attention_bwd=layers * len(steps), ctc=len(steps),
-        ctc_bwd=len(steps))
+        ctc_bwd=len(steps), filtfilt_chain=1)
     finished = log_lines(os.path.join(rec_run, "log.txt"), "finished epoch")
     log(f"[disk] recognition CLI, 1 epoch: {len(steps)} micro-step(s), "
         f"{updates} update(s), {len(devset)} validation utterances in "
@@ -2279,7 +2629,7 @@ def disk_run(card, work):
         raise AssertionError("--evaluate_saved failed")
     log(f"[disk] phase wall time {time.perf_counter() - t_phase:.1f} s; "
         f"launches {total} (the vocoder CLIs' apart)")
-    return total, vocoder_launches
+    return total, vocoder_launches, corpus_inputs[0], build_s
 
 
 def disk_vocoder(work, data, model_pt, layers):
@@ -2702,6 +3052,65 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
     ]
 
 
+def time_filtfilt(card, path_launches, corpus_inputs, errs, build_s,
+                  stream_latency):
+    """Phase 8, the filter chain at the shape of phase 7's corpus build
+    (its own inputs): ms a launch against the bound and the plain version,
+    and ns a step of its dependent chain. Returns its kernels JSON entry."""
+    import torch
+    from silent_speech_tpu_torch.dsp.device_filters import padlen
+    from silent_speech_tpu_torch.ops.filtfilt import (filtfilt_chain,
+                                                      filtfilt_chain_plain)
+
+    x, lengths, coeffs = corpus_inputs
+    b, t_pad, c = x.shape
+    out = filtfilt_chain(x, lengths, coeffs)
+    ms = cuda_time_ms(lambda: filtfilt_chain(x, lengths, coeffs), iters=10,
+                      warmup=1)
+    # one run of the plain loop on CPU tensors, where the port runs it
+    # (on the card it is ~10 launches a step; phase 2 holds it there),
+    # times it and holds the kernel to it
+    x_cpu = x.cpu()
+    t0 = time.perf_counter()
+    ref = filtfilt_chain_plain(x_cpu, lengths, coeffs)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (out.cpu() - ref).abs().max().item()
+    if not torch.equal(out.cpu(), ref):
+        raise AssertionError("filtfilt_chain disagrees with its plain "
+                             "version at the corpus build's shape")
+    lens = lengths.tolist()
+    # each valid input sample read once, the padded output written once;
+    # a step of a filter with nd delays: 2 + 4·nd operations, 2 passes of
+    # L + 2p steps a column
+    nbytes = 4 * c * sum(lens) + 4 * b * t_pad * c + 4 * b
+    ops = sum(c * 2 * (n + 2 * padlen(bb, aa)) * (2 + 4 * (len(bb) - 1))
+              for n in lens for bb, aa in coeffs)
+    bound_ms, bound_by = _bound(nbytes, ops, "float32")
+    steps = sum(2 * (max(lens) + 2 * padlen(bb, aa)) for bb, aa in coeffs)
+    ns_step = ms * 1e6 / steps
+    log(f"[time] {card} | filtfilt_chain {len(coeffs)} filters B={b} "
+        f"T_pad={t_pad} C={c} (phase 7's corpus build, lengths "
+        f"{min(lens)}..{max(lens)}): kernel {ms:.4f} ms/launch, plain "
+        f"{plain_ms:.2f} ms (CPU tensors, torch.equal to the kernel), "
+        f"bound {bound_ms:.5f} ms ({bound_by}), "
+        f"{bound_ms / ms:.2%} of bound; the dependent chain of the longest "
+        f"column: {steps} steps, {ns_step:.2f} ns a step")
+    by_path = {path: counts["filtfilt_chain"]
+               for path, counts in path_launches.items()}
+    return {"name": "filtfilt_chain", "route": "cuda",
+            "source": "silent_speech_tpu_torch/csrc/filtfilt.cu",
+            "replaces": "silent_speech_tpu/dsp/jax_filters.py:49",
+            "pallas": False,
+            "shape": f"B={b} T_pad={t_pad} C={c} f32, {len(coeffs)} filters",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err, "max_abs_err_phase2": errs["filtfilt_chain"],
+            "ms": ms, "plain_ms": plain_ms, "plain_on": "cpu",
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "chain_steps": steps,
+            "ns_per_step": ns_step, "corpus_build_s": build_s,
+            "streaming_recompute_ms": stream_latency}
+
+
 def main() -> int:
     import torch
 
@@ -2731,6 +3140,7 @@ def main() -> int:
         now = time.perf_counter()
         laps[name] = round(now - t_lap[0], 1)
         t_lap[0] = now
+        log(f"[lap] {name}: {laps[name]} s ({now - t_start:.1f} s in all)")
 
     # 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2784,9 +3194,13 @@ def main() -> int:
     try:
         rec_launches, rec_serve_launches, rec_ctc = recognition_run(card,
                                                                     work)
+        lap("recognition")
+        # 6c. streaming from phase 6's model.pt ----------------------------
+        stream_launches, stream_latency = streaming_run(
+            card, os.path.join(work, "fit", "model.pt"), work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    lap("recognition")
+    lap("streaming")
 
     # 6b. the vocoder ------------------------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_voc_",
@@ -2801,20 +3215,25 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_disk_",
                             dir=os.path.join(ROOT, "build"))
     try:
-        disk_launches, disk_vocoder_launches = disk_run(card, work)
+        disk_launches, disk_vocoder_launches, corpus_inputs, build_s = \
+            disk_run(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     lap("disk")
 
     # 8. kernel timings ----------------------------------------------------
-    kernels = time_kernels(
-        card, {"serve": serve_launches, "train": train_launches,
-               "fit": fit_launches, "aligned_prediction": aligned_launches,
-               "recognition_fit": rec_launches,
-               "recognition_serve": rec_serve_launches,
-               "disk": disk_launches, "serve_vocoded": vocoded_launches,
-               "gan": gan_launches, **disk_vocoder_launches},
-        errs, dtw_inputs, aligned_inputs, rec_ctc)
+    path_launches = {
+        "serve": serve_launches, "train": train_launches,
+        "fit": fit_launches, "aligned_prediction": aligned_launches,
+        "recognition_fit": rec_launches,
+        "recognition_serve": rec_serve_launches,
+        "streaming": stream_launches, "disk": disk_launches,
+        "serve_vocoded": vocoded_launches, "gan": gan_launches,
+        **disk_vocoder_launches}
+    kernels = time_kernels(card, path_launches, errs, dtw_inputs,
+                           aligned_inputs, rec_ctc)
+    kernels.append(time_filtfilt(card, path_launches, corpus_inputs, errs,
+                                 build_s, stream_latency))
     lap("timings")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the card was "
         f"found; wall seconds by phase {laps}")

@@ -55,6 +55,10 @@ class DataConfig:
     # share of the card's memory the corpus may take; over it, training
     # packs on the host. <= 0 disables the check
     cache_hbm_fraction: float = 0.4
+    # how a corpus on disk is featurized for the device corpus: "device"
+    # (``data/device_featurize.py``, the filter chain as one kernel) or
+    # "host" (``EMGDataset.__getitem__``); the JAX package's "jax"
+    cache_featurize: str = "device"
 
 
 @dataclass

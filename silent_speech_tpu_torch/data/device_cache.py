@@ -171,15 +171,22 @@ def build_training_corpus(dataset, data_cfg, device: torch.device
                           ) -> Optional[DeviceCorpus]:
     """``dataset`` as a ``DeviceCorpus``, or None when the corpus is off
     (``data_cfg.device_cache`` and ``fixed_shapes`` both needed) or over
-    its budget; a trainer then packs on the host."""
+    its budget; a trainer then packs on the host. A corpus on disk (an
+    ``EMGDataset``) is featurized on the device when
+    ``data_cfg.cache_featurize`` is ``"device"``; example dicts in memory
+    have no raw capture and go as they are."""
+    from .dataset import EMGDataset
+    from .device_featurize import build_device_corpus
+
     if not (data_cfg.device_cache and data_cfg.fixed_shapes):
         return None
-    logging.info("building the device corpus (%d examples, host "
-                 "featurization)", len(dataset))
+    featurize = data_cfg.cache_featurize \
+        if isinstance(dataset, EMGDataset) else "host"
+    logging.info("building the device corpus (%d examples, %s "
+                 "featurization)", len(dataset), featurize)
     try:
-        return DeviceCorpus.build(
-            [dataset[i] for i in range(len(dataset))], device,
-            hbm_fraction=data_cfg.cache_hbm_fraction)
+        return build_device_corpus(dataset, device, featurize=featurize,
+                                   hbm_fraction=data_cfg.cache_hbm_fraction)
     except HBMBudgetError as e:
         logging.warning("%s", e)
         logging.warning("device corpus over budget - using the host "

@@ -1,18 +1,20 @@
-"""Model ensembling for evaluation.
+"""Synthesis outputs and model ensembling.
 
-Own copy of ``EnsemblePredictor`` from the JAX package's
-``silent_speech_tpu/eval/synthesis.py`` (reference ``EnsembleModel``,
-``evaluate.py:22-34``): N transduction models of one architecture, whose
-mel heads and phoneme heads are averaged. The N forwards run one after
-another, each through the attention kernel (the JAX package vmaps one
-forward over stacked weights; the kernel is not batched over weights).
-``save_output`` and ``dump_all_outputs`` need the vocoder and are not
-ported yet.
+Counterpart of the JAX package's ``silent_speech_tpu/eval/synthesis.py``:
+``save_output`` (reference ``transduction_model.py:57-73``) predicts one
+utterance, inverts the mel normalizer, vocodes and writes a 22.05 kHz wav;
+``dump_all_outputs`` does so for a whole dataset; ``EnsemblePredictor``
+(reference ``EnsembleModel``, ``evaluate.py:22-34``) averages the mel and
+phoneme heads of N transduction models of one architecture. The N
+forwards run one after another, each through the attention kernel (the
+JAX package vmaps one forward over stacked weights; the kernel is not
+batched over weights).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple
+import os
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +22,34 @@ import torch
 from ..models.encoder import EMGEncoder
 from ..phonemes import NUM_PHONES
 from ..train.transduction import aligned_prediction
+from ..utils.audio_io import write_wav
+
+
+def save_output(trainer, example: dict, filename: str, audio_normalizer,
+                vocoder) -> np.ndarray:
+    """Predict → denormalize → vocode → write a 22.05 kHz wav; returns the
+    audio. ``trainer`` is anything with ``predict(example)`` (a
+    ``TransductionTrainer`` or an ``EnsemblePredictor``), ``vocoder`` maps
+    a (T, 80) mel to a waveform (``models.hifigan.Vocoder``)."""
+    mel = audio_normalizer.inverse(trainer.predict(example))
+    audio = np.asarray(vocoder(mel))
+    write_wav(filename, audio, 22050)
+    return audio
+
+
+def dump_all_outputs(trainer, dataset, output_directory: str,
+                     audio_normalizer, vocoder,
+                     prefix: str = "example_output") -> List[str]:
+    """Write ``{prefix}_{i}.wav`` for every example (reference
+    ``transduction_model.py:222-223``, ``evaluate.py:61-62``); returns the
+    paths."""
+    os.makedirs(output_directory, exist_ok=True)
+    paths = []
+    for i in range(len(dataset)):
+        path = os.path.join(output_directory, f"{prefix}_{i}.wav")
+        save_output(trainer, dataset[i], path, audio_normalizer, vocoder)
+        paths.append(path)
+    return paths
 
 
 class EnsemblePredictor:

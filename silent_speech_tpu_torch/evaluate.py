@@ -1,12 +1,12 @@
 """CLI: evaluate an ensemble of transduction models on the test set.
 
-Counterpart of the JAX package's root ``evaluate.py`` without its vocoder
-branch::
+Counterpart of the JAX package's root ``evaluate.py``::
 
     python -m silent_speech_tpu_torch.evaluate --models a.pt b.pt \\
         --silent_data_directories DIR --voiced_data_directories DIR \\
         --testset_file F --text_align_directory DIR --normalizers_file F \\
-        --output_directory eval/ [--dev] [--device cpu]
+        --output_directory eval/ [--dev] [--hifigan_checkpoint G] \\
+        [--device cpu]
 
 It loads each reference-layout ``model.pt`` strictly into the
 architecture the model flags describe (``--model_size``,
@@ -17,8 +17,10 @@ phoneme accuracy: …`` and the most confused phoneme pairs to
 takes paths separated by spaces or commas. ``--dev`` evaluates the dev
 split instead of the test split. It runs on the card unless ``--device
 cpu``. Without ``--hifigan_checkpoint`` it stops there, as the JAX CLI
-does; the wav synthesis and the ASR judge are not ported yet, so a
-``--hifigan_checkpoint`` raises ``NotImplementedError``.
+does. With it, each utterance's ensemble prediction is denormalized,
+vocoded and written as ``example_output_{i}.wav``, and the DeepSpeech
+judge (``eval/asr.py``) reports the WER; without the ``deepspeech``
+package the judge is skipped with a warning.
 """
 
 from __future__ import annotations
@@ -38,9 +40,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--models", nargs="+", default=[],
                     help="reference-layout model.pt files to average")
     add_flag(ap, "dev", False, "evaluate dev instead of test", _bool)
-    ap.add_argument("--hifigan_checkpoint", default=None,
-                    help="hifi-gan generator checkpoint (synthesis not ported "
-                         "yet)")
     return ap
 
 
@@ -60,12 +59,12 @@ def main(argv: Optional[Sequence[str]] = None):
     paths = [p for arg in args.models for p in _list(arg)]
     if not paths:
         raise SystemExit("pass at least one --models checkpoint")
-    if args.hifigan_checkpoint is not None:
-        raise NotImplementedError(
-            "--hifigan_checkpoint: the port has no wav synthesis or ASR "
-            "judge yet (ROADMAP.md section 1, slice 5); evaluate without "
-            "it for the loss and phoneme accuracy")
     device = resolve_device(args.device)  # no card: raise before any work
+    vocoder = None
+    if args.hifigan_checkpoint is not None:  # a bad path: raise before too
+        from .models.hifigan import Vocoder
+
+        vocoder = Vocoder(args.hifigan_checkpoint, device=device)
     model_cfg, data_cfg, train_cfg = configs_from_args(args)
     setup_run_logging(train_cfg.output_directory, filename="eval_log.txt")
     testset = EMGDataset(data_cfg, dev=args.dev, test=not args.dev)
@@ -79,9 +78,18 @@ def main(argv: Optional[Sequence[str]] = None):
     logging.info("loss: %.4f phoneme accuracy: %.2f", loss, acc * 100)
     for line in confusion_lines(confusion):
         logging.info(line)
-    logging.warning(
-        "no --hifigan_checkpoint: skipping wav synthesis and the ASR WER "
-        "judge (reference evaluate.py:59-64 requires a vocoder)")
+    if vocoder is None:
+        logging.warning(
+            "no --hifigan_checkpoint: skipping wav synthesis and the ASR "
+            "WER judge (reference evaluate.py:59-64 requires a vocoder)")
+        return loss, acc, confusion
+
+    from .eval.asr import evaluate_if_installed
+    from .eval.synthesis import dump_all_outputs
+
+    dump_all_outputs(ensemble, testset, train_cfg.output_directory,
+                     testset.mfcc_norm, vocoder)
+    evaluate_if_installed(testset, train_cfg.output_directory)
     return loss, acc, confusion
 
 

@@ -222,6 +222,7 @@ class TransductionTrainer:
         return build_training_corpus(dataset, self.data_cfg, self.device)
 
     def fit(self, trainset, devset, epochs: Optional[int] = None,
+            vocoder=None, save_sound_outputs: bool = False,
             seed: int = 0, resume: bool = False,
             eval_every: int = 1) -> EMGEncoder:
         """Train for ``epochs`` (default ``train_cfg.epochs``) over
@@ -232,7 +233,10 @@ class TransductionTrainer:
         restores the checkpoint there. As in JAX, the sampler is built
         after the restore, so a resumed run shuffles its first epoch as
         epoch 0. The step losses stay on the device and are read once an
-        epoch; a non-finite epoch loss raises ``FloatingPointError``."""
+        epoch; a non-finite epoch loss raises ``FloatingPointError``. With
+        ``save_sound_outputs`` and a ``vocoder``, each epoch also writes
+        ``epoch_{epoch}_output.wav``, ``devset[0]`` vocoded (reference
+        ``transduction_model.py:224-226``)."""
         cfg = self.train_cfg
         epochs = epochs if epochs is not None else cfg.epochs
         if cfg.data_size_fraction < 1:
@@ -306,6 +310,12 @@ class TransductionTrainer:
                                    "scale": plateau.scale}})
             export_reference_checkpoint(
                 self.model, os.path.join(cfg.output_directory, "model.pt"))
+            if save_sound_outputs and vocoder is not None:
+                from ..eval.synthesis import save_output
+
+                save_output(self, devset[0], os.path.join(
+                    cfg.output_directory, f"epoch_{epoch}_output.wav"),
+                    devset.mfcc_norm, vocoder)
         return self.model
 
     def eval_groups(self, dataset, batch_size: int = 32) -> List[List[int]]:

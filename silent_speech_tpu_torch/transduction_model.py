@@ -14,8 +14,16 @@ It trains with warmup × plateau AdamW, validates each epoch, and writes
 continues from) and the reference-layout ``model.pt`` into
 ``--output_directory``. It runs on the card unless ``--device cpu``.
 Booleans take the JAX CLI's forms: ``--resume``, ``--noresume``,
-``--fixed_shapes=false``; lists are comma-separated. The vocoder and ASR
-evaluation of the JAX CLI are not ported yet.
+``--fixed_shapes=false``; lists are comma-separated.
+
+With ``--hifigan_checkpoint G`` (a generator checkpoint with its
+``config.json`` beside it) each epoch also writes
+``epoch_{epoch}_output.wav`` of the first dev utterance, and after
+training every dev utterance is vocoded to ``example_output_{i}.wav`` and
+judged by the DeepSpeech ASR (``eval/asr.py``). Without the ``deepspeech``
+package the judge is skipped with a warning and the run ends normally, as
+the JAX ``evaluate.py`` handles it (the JAX ``transduction_model.py``
+ends with the ``ImportError`` instead).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
          "weight of auxiliary phoneme loss")
     flag("l2", t.l2, "weight decay")
     flag("output_directory", t.output_directory, "output directory")
+    flag("hifigan_checkpoint", None, "hifi-gan generator checkpoint", str)
     add_data_flags(flag)
     # the JAX package's additions that the port shares
     flag("chunk_bucket", d.chunk_bucket,
@@ -105,6 +114,11 @@ def main(argv: Optional[Sequence[str]] = None):
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)  # no card: raise before any work
+    vocoder = None
+    if args.hifigan_checkpoint is not None:  # a bad path: raise before too
+        from .models.hifigan import Vocoder
+
+        vocoder = Vocoder(args.hifigan_checkpoint, device=device)
     model_cfg, data_cfg, train_cfg = configs_from_args(args)
     setup_run_logging(train_cfg.output_directory)
     log_run_provenance()
@@ -117,7 +131,17 @@ def main(argv: Optional[Sequence[str]] = None):
     trainer = TransductionTrainer(model_cfg, data_cfg, train_cfg,
                                   device=device)
     log_device_info(trainer.device)
-    trainer.fit(trainset, devset, seed=0, resume=args.resume)
+    trainer.fit(trainset, devset, vocoder=vocoder,
+                save_sound_outputs=vocoder is not None, seed=0,
+                resume=args.resume)
+    if vocoder is not None:
+        from .eval.asr import evaluate_if_installed
+        from .eval.synthesis import dump_all_outputs
+
+        out_dir = train_cfg.output_directory
+        dump_all_outputs(trainer, devset, out_dir, devset.mfcc_norm,
+                         vocoder)
+        evaluate_if_installed(devset, out_dir)
     return trainer
 
 

@@ -208,10 +208,12 @@ def test_cli_evaluates_an_ensemble_on_the_cpu(corpus, tmp_path):
 
 
 def test_cli_refuses_a_vocoder_and_an_empty_ensemble(corpus, tmp_path):
+    # a vocoder checkpoint that is not there is refused before any work
+    # (the vocoder branch itself: test_torch_synthesis_cli.py)
     ours_cfg, _ = corpus
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(FileNotFoundError):
         evaluate.main(_cli_args(ours_cfg, tmp_path, ["m.pt"])
-                      + ["--hifigan_checkpoint", "g.pt"])
+                      + ["--hifigan_checkpoint", str(tmp_path / "g.pt")])
     with pytest.raises(SystemExit, match="at least one --models"):
         evaluate.main(_cli_args(ours_cfg, tmp_path, [])[:-1])
     assert not any(tmp_path.iterdir())    # raised before any work

@@ -18,7 +18,9 @@ from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
 from silent_speech_tpu_torch.data import dataset as dataset_module
 from silent_speech_tpu_torch.data.dataset import ExampleList
 from silent_speech_tpu_torch.data.synthetic import generate_corpus
-from silent_speech_tpu_torch.eval import export, server
+from silent_speech_tpu_torch.data.device_featurize import \
+    build_device_corpus
+from silent_speech_tpu_torch.eval import export, server, streaming
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.models.hifigan import (HiFiGANConfig, Vocoder,
                                                     init_generator)
@@ -284,3 +286,31 @@ def test_vocoder_runs_on_the_cpu_only_when_asked(tmp_path):
     trainer.gen_cfg.to_json(str(tmp_path / "config.json"))
     vocoder = Vocoder(str(tmp_path / "g.pt"), device="cpu")
     assert vocoder(np.zeros((3, 80), np.float32)).shape == (24,)
+
+
+def test_streaming_and_device_featurization_raise_without_a_card(
+        no_card, tmp_path):
+    cfg = generate_corpus(str(tmp_path / "c"), n_voiced_sessions=1,
+                          n_silent_sessions=1, utterances_per_session=3,
+                          seed=1, dev_fraction=0.0, test_fraction=0.0)
+    data = dataset_module.EMGDataset(cfg, no_testset=True,
+                                     no_normalizers=True)
+    for call in (lambda: streaming.main(["--seconds", "0.1"]),
+                 lambda: streaming.demo_trainer(),
+                 lambda: build_device_corpus(data),
+                 lambda: build_device_corpus(data, device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            call()
+
+
+def test_the_filter_kernel_builds_from_the_repo_s_sources_alone():
+    # csrc/filtfilt.cu includes the CUDA runtime only, and builds into
+    # build/kernels at the root of the checkout (listed in .gitignore)
+    src, out = build._target("filtfilt")
+    assert src == ROOT / "silent_speech_tpu_torch" / "csrc" / "filtfilt.cu"
+    assert out.parent == ROOT / "build" / "kernels"
+    includes = [line for line in src.read_text().splitlines()
+                if line.startswith("#include")]
+    assert includes == ["#include <cuda_runtime.h>"]
+    assert "filtfilt" in build.kernel_names()
+    assert "build/" in (ROOT / ".gitignore").read_text().split()

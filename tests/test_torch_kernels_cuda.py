@@ -680,3 +680,127 @@ def test_log_mel_on_card_matches_cpu(card):
     ref = torch_log_mel_spectrogram(audio)
     out = torch_log_mel_spectrogram(audio.to("cuda")).cpu()
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+# -- the zero-phase filter chain (csrc/filtfilt.cu) --------------------------
+
+def _ragged_emg(lengths, t_pad, seed=0):
+    """(B, t_pad, 8) float32 of σ = 100, zero past each length."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((len(lengths), t_pad, 8), np.float32)
+    for u, n in enumerate(lengths):
+        x[u, :n] = rng.normal(size=(n, 8)) * 100
+    return torch.from_numpy(x)
+
+
+# 3·ntaps + 1 for the high-pass, lengths not a multiple of 32, the full pad
+FILTER_LENGTHS = [13, 4096, 1000, 777, 2049, 31, 3333, 4095]
+
+
+def test_filter_chain_kernel_is_bit_equal_to_plain(card):
+    from silent_speech_tpu_torch.dsp.device_pipeline import filter_coeffs
+    from silent_speech_tpu_torch.ops.filtfilt import (filtfilt_chain,
+                                                      filtfilt_chain_plain)
+
+    coeffs = filter_coeffs()
+    x = _ragged_emg(FILTER_LENGTHS, 4096)
+    lengths = torch.tensor(FILTER_LENGTHS)
+    before = filtfilt_chain.launches
+    out = filtfilt_chain(x.cuda(), lengths, coeffs)
+    torch.cuda.synchronize()
+    assert filtfilt_chain.launches == before + 1
+    assert torch.equal(out.cpu(), filtfilt_chain_plain(x, lengths, coeffs))
+
+
+def test_filter_chain_kernel_does_not_depend_on_the_grouping(card):
+    from silent_speech_tpu_torch.dsp.device_pipeline import filter_coeffs
+    from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
+
+    coeffs = filter_coeffs()
+    x = _ragged_emg(FILTER_LENGTHS, 4096, seed=1).cuda()
+    lengths = torch.tensor(FILTER_LENGTHS)
+    whole = filtfilt_chain(x, lengths, coeffs)
+    split = torch.cat([filtfilt_chain(x[:3], lengths[:3], coeffs),
+                       filtfilt_chain(x[3:], lengths[3:], coeffs)])
+    alone = filtfilt_chain(x[3:4, :777], lengths[3:4], coeffs)
+    again = filtfilt_chain(x, lengths, coeffs)
+    assert torch.equal(whole, split)
+    assert torch.equal(whole[3, :777], alone[0])
+    assert torch.equal(whole, again)
+
+
+def test_a_cuda_tensor_never_reaches_the_plain_filter(card, monkeypatch):
+    from silent_speech_tpu_torch.dsp import device_filters
+    from silent_speech_tpu_torch.dsp.device_pipeline import (clean_emg,
+                                                             filter_coeffs)
+    from silent_speech_tpu_torch.ops import filtfilt as filtfilt_module
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain loop")
+
+    for module, name in ((device_filters, "lfilter"),
+                         (device_filters, "filtfilt_masked_plain"),
+                         (device_filters, "filtfilt_plain"),
+                         (filtfilt_module, "filtfilt_masked_plain"),
+                         (filtfilt_module, "filtfilt_chain_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    x = _ragged_emg([300], 300)[0].cuda()
+    b, a = filter_coeffs()[0]
+    before = filtfilt_module.filtfilt_chain.launches
+    assert device_filters.filtfilt(b, a, x).shape == x.shape
+    assert device_filters.filtfilt_masked(b, a, x, 200)[200:].abs().sum() \
+        == 0
+    assert clean_emg(x).shape == x.shape
+    assert filtfilt_module.filtfilt_chain.launches == before + 3
+
+
+def test_featurize_on_device_on_the_card_matches_the_cpu(card,
+                                                         tmp_path):
+    from silent_speech_tpu_torch.data.dataset import EMGDataset
+    from silent_speech_tpu_torch.data.device_featurize import \
+        featurize_on_device
+    from silent_speech_tpu_torch.data.synthetic import generate_corpus
+    from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
+
+    cfg = generate_corpus(str(tmp_path / "c"), n_voiced_sessions=1,
+                          n_silent_sessions=1, utterances_per_session=4,
+                          seed=21)
+    data = EMGDataset(cfg, limit_length=True)
+    before = filtfilt_chain.launches
+    card_out = featurize_on_device(data, device="cuda")
+    assert filtfilt_chain.launches == before + 1     # the whole corpus
+    cpu_out = featurize_on_device(data, device="cpu")
+    for i, (got, want) in enumerate(zip(card_out, cpu_out)):
+        assert got["raw_emg"].shape == want["raw_emg"].shape
+        # the filter is bit-equal; the interpolation, /20 and tanh round
+        # in the last bits on the card (values within ±50)
+        np.testing.assert_allclose(got["raw_emg"], want["raw_emg"], rtol=0,
+                                   atol=1e-4)
+        # the DFT products in another order (f32, TF32 off)
+        np.testing.assert_allclose(got["audio_features"],
+                                   want["audio_features"], rtol=0,
+                                   atol=1e-3)
+        host = data[i]
+        # the host path's bounds (tests/test_jax_featurize.py:72-83)
+        np.testing.assert_allclose(got["raw_emg"], host["raw_emg"], rtol=0,
+                                   atol=5e-2)
+        np.testing.assert_allclose(got["audio_features"],
+                                   host["audio_features"], rtol=0,
+                                   atol=2e-2)
+
+
+def test_a_streaming_recompute_on_the_card_is_the_offline_predict(card):
+    from silent_speech_tpu_torch.eval.decode import greedy_ctc_decode
+    from silent_speech_tpu_torch.eval.streaming import (
+        StreamingRecognizer, demo_trainer, featurize_raw_window)
+
+    trainer = demo_trainer("", "cuda")
+    stream = StreamingRecognizer(trainer, hop_s=0.5)
+    x = np.random.default_rng(4).normal(size=(3000, 8)) * 30
+    stream.feed(x)
+    before = rel_attention.launches
+    text = stream.transcript(force=True)
+    assert rel_attention.launches == before + trainer.model_cfg.num_layers
+    lp = trainer.predict_logits(featurize_raw_window(x))
+    assert text == trainer.text_transform.int_to_text(
+        greedy_ctc_decode(lp, trainer.blank_id))
