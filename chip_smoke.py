@@ -44,7 +44,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    1500-frame request) and attached to a second server: each vocoded
    ``/v1/transduce`` returns audio of T·256 samples, finite, within ±1 and
    equal to ``vocode(denormalize(mel))`` computed here, with 6 forward
-   attention launches a request;
+   attention launches a request. Int8: both ``model.pt`` files exported
+   again with ``--export_int8`` and loaded on the card, the quantized
+   weights int8 CUDA tensors, the resident bytes of each bundle
+   (``torch.cuda.memory_allocated`` around the load) printed beside the
+   bf16 bundle's; every bucket served over HTTP from the int8 bundles with
+   6 forward attention launches a request, each output torch.equal to a
+   bf16 bundle of ``dequantize_state(quantize_state(state))`` and within
+   a relative error of 0.05 of the bf16 bundle's;
 4. train: a full-width transduction trainer (bf16 compute, dropout 0.2,
    shift augmentation, AdamW with bf16 moments) takes 2 warm-up and 10
    timed steps on the bench's 4 example sets packed on the host to the
@@ -135,8 +142,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    vocodes one of the mels from a bundle; every CLI's launches are counted
    against its steps, validation batches and utterances, and the phase
    prints its wall time;
-8. time the requests per bucket (mel-only as before, and vocoded), the
-   forward and ``vocode()`` per bucket, the training
+7b. capture: a book of three sentences under ``build/``; ``python -m
+   silent_speech_tpu_torch.capture.session --debug`` records each from the
+   synthetic board (Enter lines on its stdin, the book ends the session)
+   and ``python -m silent_speech_tpu_torch.capture.clean_audio`` cleans
+   it, both exit 0 on the host; every file's schema is checked; the
+   port's ``EMGDataset`` reads the session and ``featurize_on_device``
+   featurizes it on the card (one filter launch), held to the host path
+   by phase 7's bounds; each utterance is served from phase 3's int8
+   transduction bundle (6 forward attention launches each); the phase
+   prints its wall time;
+8. time the requests per bucket (mel-only as before, vocoded, and from
+   the int8 bundles beside the bf16 ones), the forward and ``vocode()``
+   per bucket (the int8 forward with and without its dequantization, and
+   the dequantization alone; these serving timings run in phase 3, where
+   the bundles are loaded), the training
    steps (median of 3 synced trials) and each kernel per launch at the
    main path's shapes against its bound and its plain version (the bf16
    attention forward also by its device time per launch under the
@@ -151,7 +171,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    micro-step's own inputs (against ``F.ctc_loss`` forward and backward
    on its rows with text, timed as the library column, never called by
    the port), the filter chain at phase 7's corpus build's own inputs
-   (also in ns a step of its dependent chain), and
+   (also in ns a step of its dependent chain), both chain-bound kernels
+   also against a latency bound (the chain's length times its dependent
+   FP32 operations a step at the maximum SM clock), and
    profile one forward and one training step (device busy time, idle
    share, kernels by time).
 
@@ -290,6 +312,51 @@ AB_ROUNDS, AB_STEPS = 3, 3
 GAN_BATCH = 16
 GAN_WARMUP, GAN_TIMED, GAN_PROFILED = 2, 3, 1
 GAN_WAVS, GAN_WAV_SECONDS = 4, 2.0
+# the capture phase: a book of three sentences, each recorded for
+# CAPTURE_SECONDS from the synthetic board (one 256-frame bucket each)
+CAPTURE_SENTENCES = ("The first sentence of the book.",
+                     "A second one follows it.", "The third ends the book.")
+CAPTURE_SECONDS = 1.5
+
+
+# latency bounds of the two chain-bound kernels: the dependent chain's
+# length times one step's dependent FP32 operations at DEP_CYCLES each (the
+# issue-to-use latency of a dependent FP32 add or multiply on sm_80 and
+# sm_90), at the card's maximum SM clock. A lower bound: a step's shared
+# memory round trip, barrier and the rest of expf/log1pf's instruction
+# sequences are not counted (each of those two counts as one operation).
+DEP_CYCLES = 4
+# csrc/filtfilt.cu df2t: z0 -> y = b0*e + z0 (add) -> a1*y (mul) -> z0' =
+# (z1 + b1*e) - a1*y (sub); b0*e and z1 + b1*e are off the chain
+FILT_DEP_OPS = 3
+# csrc/ctc.cu forward, a frame: emit[n-1] + pen (add), lae (sub, expf,
+# log1pf, add) = a, then a + le (add) and lae again = emit[n]
+CTC_FWD_DEP_OPS = 10
+# csrc/ctc.cu backward, a frame: g_emit -> g1 (mul) -> g_a (add) -> g_a·e
+# (mul) -> q (add) -> through shared memory, g_emit = g2 + q (add); the
+# exponentials take stored states only
+CTC_BWD_DEP_OPS = 5
+
+
+def max_sm_clock_hz():
+    """The card's maximum SM clock from nvidia-smi, or None."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout.split()
+        return float(out[0]) * 1e6
+    except (OSError, ValueError, IndexError, subprocess.TimeoutExpired):
+        return None
+
+
+def latency_bound_ms(steps: int, dep_ops: int):
+    """ms of ``steps`` dependent steps of ``dep_ops`` FP32 operations each
+    at the card's maximum SM clock, or None without the clock."""
+    hz = max_sm_clock_hz()
+    return None if hz is None else steps * dep_ops * DEP_CYCLES / hz * 1e3
 
 
 def log(msg: str) -> None:
@@ -855,7 +922,7 @@ def serve(card, work):
         # bundle: the vocoded route denormalizes with it
         norm_path = os.path.join(work, "normalizers.pkl")
         write_normalizers(norm_path)
-        bundles = {}
+        bundles, resident = {}, {}
         for i, (kind, heads) in enumerate((("transduction", (80, 48)),
                                            ("recognition", (38, None)))):
             model = EMGEncoder(*heads, ModelConfig()).init_weights(
@@ -868,8 +935,11 @@ def serve(card, work):
                     "--normalizers_file", norm_path]
             export.main(argv + (["--recognition"]
                                 if kind == "recognition" else []))
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
             bundles[kind] = export.ServingBundle.load(
                 os.path.join(work, kind), device="cuda")
+            resident[kind] = torch.cuda.memory_allocated() - before
         if not bundles["transduction"].has_normalizer \
                 or bundles["recognition"].has_normalizer:
             raise AssertionError("the export CLI did not embed the mel "
@@ -983,8 +1053,170 @@ def serve(card, work):
     finally:
         if server is not None:
             server.stop()
+    int8_launches, int8_bundle = serve_int8(card, work, bundles, resident,
+                                            requests, replies, latency)
     vocoded = serve_vocoded(card, bundles["transduction"], work)
-    return launches, vocoded
+    return launches, vocoded, int8_launches, int8_bundle
+
+
+def resident_tensor_bytes(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def serve_int8(card, work, bundles, resident, requests, replies, latency):
+    """Phase 3, int8: the same two full-width model.pt files exported with
+    ``--export_int8`` and loaded on the card (the quantized weights int8
+    CUDA tensors, resident bytes beside the bf16 bundles'), every bucket
+    served over HTTP (6 forward attention launches a request), each output
+    torch.equal to a bf16 bundle of ``dequantize_state(quantize_state(
+    state))`` and within SERVED_RTOL relative error of the plain bf16
+    bundle's (phase 3's replies); then the int8 request p50 per bucket
+    beside the bf16 one, and the forward per bucket with and without the
+    dequantization. Returns the launches and the int8 transduction
+    bundle, which phase 7b serves from."""
+    import torch
+    from silent_speech_tpu_torch.eval import export
+    from silent_speech_tpu_torch.eval.server import ServingServer
+    from silent_speech_tpu_torch.models.encoder import EMGEncoder
+
+    t_phase = time.perf_counter()
+    int8, twins = {}, {}
+    for kind in ("transduction", "recognition"):
+        model_pt = os.path.join(work, f"{kind}.pt")
+        export.main(["--models", model_pt, "--output_directory",
+                     os.path.join(work, f"{kind}_int8"), "--t_buckets",
+                     ",".join(map(str, BUCKETS)), "--normalizers_file",
+                     os.path.join(work, "normalizers.pkl"), "--export_int8"]
+                    + (["--recognition"] if kind == "recognition" else []))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        int8[kind] = export.ServingBundle.load(
+            os.path.join(work, f"{kind}_int8"), device="cuda")
+        q_resident = torch.cuda.memory_allocated() - before
+        state = torch.load(model_pt, map_location="cpu", weights_only=True)
+        quantized = [k for k, v in export.quantize_state(state).items()
+                     if export.is_quantized_leaf(v)]
+        originals = {n: p for n, p in int8[kind].model.named_parameters()
+                     if n.endswith(".original")}
+        ok = (int8[kind].manifest["quantize"] == "int8"
+              and len(originals) == len(quantized)
+              and all(p.dtype == torch.int8 and p.is_cuda
+                      for p in originals.values()))
+        log(f"[serve.int8] {kind}: {len(quantized)} of {len(state)} tensors "
+            f"quantized, int8 CUDA tensors: {ok}; resident on the card "
+            f"(torch.cuda.memory_allocated around the load) int8 bundle "
+            f"{q_resident} B against the bf16 bundle's {resident[kind]} B "
+            f"({q_resident / resident[kind]:.3f}x); tensor bytes "
+            f"{resident_tensor_bytes(int8[kind].model)} against "
+            f"{resident_tensor_bytes(bundles[kind].model)} ({card})")
+        if not ok:
+            raise AssertionError(f"the int8 {kind} bundle does not hold its "
+                                 f"quantized weights as int8 on the card")
+        twin = EMGEncoder.from_state_dict(
+            export.dequantize_state(export.quantize_state(state)))
+        export.save_serving_bundle(twin, kind,
+                                   os.path.join(work, f"{kind}_twin"),
+                                   t_buckets=BUCKETS)
+        twins[kind] = export.ServingBundle.load(
+            os.path.join(work, f"{kind}_twin"), device="cuda")
+        del state, twin
+
+    # every request once to each server, then timed in turns (int8, bf16,
+    # bf16, int8), so that the two p50s share the host's conditions
+    servers = {side: ServingServer(recognition=b["recognition"],
+                                   transduction=b["transduction"]).start()
+               for side, b in (("int8", int8), ("bf16", bundles))}
+    try:
+        reset_launches()
+        timed, q_replies = {}, {}
+        for t, route, body in requests:
+            q_replies[(route, t)] = post(servers["int8"].port, route, body)
+            post(servers["bf16"].port, route, body)
+            for side in ("int8", "bf16", "bf16", "int8"):
+                t0 = time.perf_counter()
+                post(servers[side].port, route, body)
+                timed.setdefault((route, t, side), []).append(
+                    time.perf_counter() - t0)
+        launches = read_launches()
+    finally:
+        for server in servers.values():
+            server.stop()
+    n_requests = len(requests) * 6
+    layers = int8["transduction"].model.cfg.num_layers
+    log(f"[serve.int8] {n_requests} requests (half int8, half bf16), "
+        f"launches {launches}")
+    if launches != launch_counts(rel_attention_fwd=layers * n_requests):
+        raise AssertionError(f"expected {layers} forward attention launches "
+                             f"per request and no other kernel")
+    for t, route, body in requests:
+        kind, key = (("transduction", "mel") if route == "/v1/transduce"
+                     else ("recognition", "log_probs"))
+        got = np.asarray(q_replies[(route, t)][key], np.float32)
+        emg = np.asarray(body["emg"], np.float32)
+        raw = np.asarray(body["raw_emg"], np.float32)
+        twin_out = twins[kind].predict(emg, raw, np.zeros(t, np.int64))
+        plain = np.asarray(replies[(route, t)][key], np.float32)
+        rel = float(np.linalg.norm(got - plain) / np.linalg.norm(plain))
+        same = torch.equal(torch.from_numpy(got), torch.from_numpy(twin_out))
+        log(f"[serve.int8] {route} t={t}: shape {got.shape}, torch.equal to "
+            f"the dequantized twin: {same}; relative error to the bf16 "
+            f"bundle {rel:.4g} (tolerance {SERVED_RTOL})")
+        if (got.shape != plain.shape or not np.isfinite(got).all()
+                or not same or not rel <= SERVED_RTOL):
+            raise AssertionError(f"int8 {route} t={t} is wrong")
+        if route == "/v1/recognize" and not isinstance(
+                q_replies[(route, t)]["text"], str):
+            raise AssertionError("int8 recognize reply has no text")
+
+    for t, route, _ in sorted(requests, key=lambda r: (r[1], r[0])):
+        bucket = next(b for b in BUCKETS if t <= b)
+        log(f"[time] {card} | {route} bucket {bucket} (t={t}): request p50 "
+            f"int8 {median_ms(timed[(route, t, 'int8')]):.2f} ms, bf16 "
+            f"{median_ms(timed[(route, t, 'bf16')]):.2f} ms, in turns, 2 "
+            f"each")
+    # the forward alone: the int8 bundle's (it dequantizes every quantized
+    # weight first) against its twin's (the same float32 weights
+    # resident), back to back (the host's issue time included) and by the
+    # device's busy time under the profiler; and the dequantization alone,
+    # also queued behind a sleeping kernel (the device's time)
+    model, twin_model = int8["transduction"].model, \
+        twins["transduction"].model
+    leaves = [(model.get_submodule(n.rsplit(".parametrizations.", 1)[0]),
+               n.rsplit(".", 2)[-2])
+              for n, _ in model.named_parameters() if n.endswith(".original")]
+    with torch.inference_mode():
+        def dequantize():
+            return [getattr(m, n) for m, n in leaves]
+
+        deq = (cuda_time_ms(dequantize, iters=10),
+               queued_ms(dequantize, iters=10))
+        log(f"[time] {card} | the dequantization of the {len(leaves)} int8 "
+            f"weights alone (int8 · scale to float32): {deq[0]:.4f} ms back "
+            f"to back, {deq[1]:.4f} ms queued")
+        for t in REQUEST_T:
+            bucket = next(b for b in BUCKETS if t <= b)
+            raw = torch.from_numpy(utterance(bucket, SEED + t)[1]).to(
+                int8["transduction"].device)[None]
+            row = {}
+            for name, m in (("int8", model), ("float32", twin_model)):
+                prof = device_profile(
+                    card, f"transduction forward bucket {bucket}, {name} "
+                    f"weights", lambda: m(raw, valid_len=t), top=0,
+                    cpu=False)
+                row[name] = (cuda_time_ms(lambda: m(raw, valid_len=t),
+                                          iters=10),
+                             fmt_ms(None if prof is None else prof[1]))
+            log(f"[time] {card} | transduction forward bucket {bucket} "
+                f"(t={t}): int8 bundle {row['int8'][0]:.4f} ms back to back, "
+                f"device busy {row['int8'][1]}; the same weights resident "
+                f"in float32 {row['float32'][0]:.4f} ms, device busy "
+                f"{row['float32'][1]}")
+    del twins
+    torch.cuda.empty_cache()
+    log(f"[serve.int8] phase wall time {time.perf_counter() - t_phase:.1f} "
+        f"s")
+    return launches, int8["transduction"]
 
 
 def write_normalizers(path):
@@ -2342,6 +2574,30 @@ def log_lines(path, prefix):
         return [line.strip() for line in f if line.startswith(prefix)]
 
 
+def held_to_host(got_examples, want_examples):
+    """``featurize_on_device``'s examples against the host ``EMGDataset``
+    path's, by HOST_RAW_REL, HOST_MIN_CORR and HOST_MEL_ATOL; the metadata
+    must be equal (raises otherwise). Returns (largest error by key, least
+    raw_emg correlation, max |raw|, within the bounds)."""
+    worst = {"raw_emg": 0.0, "audio_features": 0.0}
+    corr, scale = 1.0, 0.0
+    for i, (got, want) in enumerate(zip(got_examples, want_examples)):
+        scale = max(scale, float(np.abs(want["raw_emg"]).max()))
+        for key in worst:
+            if got[key].shape != want[key].shape:
+                raise AssertionError(f"example {i}: {key} shapes differ")
+            worst[key] = max(worst[key],
+                             float(np.abs(got[key] - want[key]).max()))
+        corr = min(corr, float(np.corrcoef(got["raw_emg"].ravel(),
+                                           want["raw_emg"].ravel())[0, 1]))
+        for key in ("text_int", "session_ids", "phonemes"):
+            if not np.array_equal(got[key], want[key]):
+                raise AssertionError(f"example {i}: {key} differs")
+    ok = (worst["raw_emg"] <= HOST_RAW_REL * scale and corr > HOST_MIN_CORR
+          and worst["audio_features"] <= HOST_MEL_ATOL)
+    return worst, corr, scale, ok
+
+
 def disk_run(card, work):
     """Phase 7: the entry points a user calls, on a corpus on disk, at full
     width. Returns the launches of the whole phase."""
@@ -2484,22 +2740,7 @@ def disk_run(card, work):
         f"examples (files, featurization, upload), in turns device, host, "
         f"host, device: device {build_s['device']} s, host "
         f"{build_s['host']} s")
-    worst = {"raw_emg": 0.0, "audio_features": 0.0}
-    corr, scale = 1.0, 0.0
-    for i, (got, want) in enumerate(zip(kept["device"], kept["host"])):
-        scale = max(scale, float(np.abs(want["raw_emg"]).max()))
-        for key in ("raw_emg", "audio_features"):
-            if got[key].shape != want[key].shape:
-                raise AssertionError(f"example {i}: {key} shapes differ")
-            worst[key] = max(worst[key],
-                             float(np.abs(got[key] - want[key]).max()))
-        corr = min(corr, float(np.corrcoef(got["raw_emg"].ravel(),
-                                           want["raw_emg"].ravel())[0, 1]))
-        for key in ("text_int", "session_ids", "phonemes"):
-            if not np.array_equal(got[key], want[key]):
-                raise AssertionError(f"example {i}: {key} differs")
-    ok = (worst["raw_emg"] <= HOST_RAW_REL * scale and corr > HOST_MIN_CORR
-          and worst["audio_features"] <= HOST_MEL_ATOL)
+    worst, corr, scale, ok = held_to_host(kept["device"], kept["host"])
     log(f"[disk] featurize_on_device on the card against the host "
         f"EMGDataset, {len(kept['device'])} training examples: raw_emg "
         f"max_abs_err {worst['raw_emg']:.4g} (tolerance {HOST_RAW_REL} x "
@@ -2630,6 +2871,132 @@ def disk_run(card, work):
     log(f"[disk] phase wall time {time.perf_counter() - t_phase:.1f} s; "
         f"launches {total} (the vocoder CLIs' apart)")
     return total, vocoder_launches, corpus_inputs[0], build_s
+
+
+def capture_run(card, work, int8_bundle):
+    """Phase 7b: the data-collection tree as a user runs it. A book of
+    CAPTURE_SENTENCES sentences under ``build/``; the session CLI records
+    each from the synthetic board (Enter lines on its stdin; the book ends
+    the session) and the cleaning CLI writes the clean audio, both on the
+    host; every file's schema is checked; the port's ``EMGDataset`` reads
+    the session and ``featurize_on_device`` featurizes it on the card (one
+    filter launch), held to the host path by phase 7's bounds; each
+    utterance is served over HTTP from phase 3's int8 transduction bundle
+    (6 forward attention launches each). Returns the launches."""
+    import subprocess
+
+    import torch
+    from silent_speech_tpu_torch.config import DataConfig
+    from silent_speech_tpu_torch.data.dataset import EMGDataset
+    from silent_speech_tpu_torch.data.device_featurize import \
+        featurize_on_device
+    from silent_speech_tpu_torch.eval.server import ServingServer
+    from silent_speech_tpu_torch.utils.audio_io import read_audio
+
+    t_phase = time.perf_counter()
+    book = os.path.join(work, "book.txt")
+    with open(book, "w") as f:
+        f.write(" ".join(CAPTURE_SENTENCES))
+    sess = os.path.join(work, "voiced", "session0")
+    runs = {}
+    for name, argv, stdin in (
+            ("session", ["silent_speech_tpu_torch.capture.session",
+                         "--debug", "--seconds", str(CAPTURE_SECONDS),
+                         "--book_file", book, "--output_directory", sess],
+             "\n" * len(CAPTURE_SENTENCES)),
+            ("clean_audio", ["silent_speech_tpu_torch.capture.clean_audio",
+                             sess], "")):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", *argv], input=stdin,
+                             capture_output=True, text=True, cwd=ROOT,
+                             timeout=300)
+        runs[name] = time.perf_counter() - t0
+        log(f"[capture] python -m {argv[0]}: exit {run.returncode} in "
+            f"{runs[name]:.2f} s; {run.stdout.strip().splitlines()[-1:]}")
+        if run.returncode != 0:
+            raise AssertionError(f"the {name} CLI failed: {run.stderr}")
+
+    # the schema of every file
+    n = len(CAPTURE_SENTENCES)
+    problems = []
+    for i in range(n):
+        with open(os.path.join(sess, f"{i}_info.json")) as f:
+            info = json.load(f)
+        emg = np.load(os.path.join(sess, f"{i}_emg.npy"))
+        button = np.load(os.path.join(sess, f"{i}_button.npy"))
+        audio, rate = read_audio(os.path.join(sess, f"{i}_audio.flac"))
+        clean, clean_rate = read_audio(os.path.join(
+            sess, f"{i}_audio_clean.flac"))
+        e_len, a_len, _ = info["chunks"][0]
+        if (set(info) != {"text", "book", "sentence_index", "chunks"}
+                or info["text"] != CAPTURE_SENTENCES[i]
+                or info["sentence_index"] != i or info["book"] != "book"
+                or emg.shape != (e_len, 8) or button.shape != (e_len,)
+                or rate != 16000 or audio.shape != (a_len,)
+                or clean_rate != 22050 or not np.abs(clean).max() <= 1.0
+                or e_len < 0.95 * 1000 * CAPTURE_SECONDS):
+            problems.append(i)
+    with open(book + ".bookmark") as f:
+        bookmark = f.read()
+    log(f"[capture] {n} utterances of {CAPTURE_SECONDS} s: emg, button, "
+        f"audio (16 kHz), info and clean audio (22.05 kHz) per the schema: "
+        f"{'ok' if not problems else f'FAIL {problems}'}; bookmark "
+        f"{bookmark}")
+    if problems or bookmark != str(n):
+        raise AssertionError("the captured session's files are wrong")
+
+    # read as the trainers read a session; featurize it on the card
+    data = EMGDataset(DataConfig(silent_data_directories=[],
+                                 voiced_data_directories=[
+                                     os.path.dirname(sess)]),
+                      no_testset=True, no_normalizers=True)
+    host = [data[i] for i in range(len(data))]
+    total = launch_counts()
+    reset_launches()
+    dev = featurize_on_device(data, device="cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    worst, corr, scale, held = held_to_host(dev, host)
+    ok = (held and len(dev) == n
+          and launches == launch_counts(filtfilt_chain=1))
+    log(f"[capture] EMGDataset of the session, {len(dev)} examples of "
+        f"{[ex['raw_emg'].shape[0] // 8 for ex in dev]} frames, featurized "
+        f"on the card: launches {launches}; raw_emg max_abs_err "
+        f"{worst['raw_emg']:.4g} (tolerance {HOST_RAW_REL} x max|raw| "
+        f"{scale:.4g}), correlation {corr:.6f} (> {HOST_MIN_CORR}), "
+        f"audio_features max_abs_err {worst['audio_features']:.4g} "
+        f"(tolerance {HOST_MEL_ATOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the captured session's device featurization "
+                             "failed")
+    for k, v in launches.items():
+        total[k] += v
+
+    # each utterance from phase 3's int8 transduction bundle
+    layers = int8_bundle.model.cfg.num_layers
+    server = ServingServer(transduction=int8_bundle).start()
+    try:
+        reset_launches()
+        outs = [np.asarray(post(server.port, "/v1/transduce", {
+            "emg": h["emg"].tolist(), "raw_emg": d["raw_emg"].tolist(),
+            "session_ids": h["session_ids"].tolist()})["mel"], np.float32)
+            for h, d in zip(host, dev)]
+        launches = read_launches()
+    finally:
+        server.stop()
+    ok = (launches == launch_counts(rel_attention_fwd=layers * n)
+          and all(o.shape == (h["emg"].shape[0], 80) and np.isfinite(o).all()
+                  for o, h in zip(outs, host)))
+    log(f"[capture] {n} utterances served from the int8 transduction "
+        f"bundle: mel shapes {[o.shape for o in outs]}, finite; launches "
+        f"{launches} (expected {layers} forward attention each) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("serving the captured session failed")
+    for k, v in launches.items():
+        total[k] += v
+    log(f"[capture] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def disk_vocoder(work, data, model_pt, layers):
@@ -2771,6 +3138,7 @@ def time_ctc(card, rec_ctc, errs):
     bound_ms, bound_by, bound_bytes = ctc_bound(lp, utt_len, labels,
                                                 text_len)
     frames = int(utt_len.max())
+    lat_ms = latency_bound_ms(frames, CTC_FWD_DEP_OPS + CTC_BWD_DEP_OPS)
     log(f"[kernel] ctc at a recognition micro-step's inputs: U={u} rows "
         f"({len(real)} with text), T={t}, S={s}, K={k}, longest "
         f"{frames} frames; F.ctc_loss on the {len(real)} rows with text "
@@ -2789,7 +3157,10 @@ def time_ctc(card, rec_ctc, errs):
         f"limits it is the "
         f"chain of {frames} dependent frames each way: "
         f"{fwd_ms * 1e6 / frames:.0f} ns a frame forward, "
-        f"{bwd_ms * 1e6 / frames:.0f} ns backward")
+        f"{bwd_ms * 1e6 / frames:.0f} ns backward; latency bound "
+        f"{fmt_ms(lat_ms)} ({frames} frames x {CTC_FWD_DEP_OPS} + "
+        f"{CTC_BWD_DEP_OPS} dependent FP32 operations x {DEP_CYCLES} cycles "
+        f"at the maximum SM clock {max_sm_clock_hz()} Hz)")
     return {"shape": f"U={u} ({len(real)} with text) T={t} S={s} K={k} "
                      f"f32, longest {frames} frames",
             "max_abs_err": max(errs[("ctc", False)], errs[("ctc", True)]),
@@ -2799,7 +3170,7 @@ def time_ctc(card, rec_ctc, errs):
             "ns_per_frame_forward": fwd_ms * 1e6 / frames,
             "ns_per_frame_backward": bwd_ms * 1e6 / frames,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "latency_bound_ms": lat_ms, "library_ms": library_ms,
             "library_ms_back_to_back": library_host_ms,
             "library_rows": len(real)}
 
@@ -3088,13 +3459,17 @@ def time_filtfilt(card, path_launches, corpus_inputs, errs, build_s,
     bound_ms, bound_by = _bound(nbytes, ops, "float32")
     steps = sum(2 * (max(lens) + 2 * padlen(bb, aa)) for bb, aa in coeffs)
     ns_step = ms * 1e6 / steps
+    lat_ms = latency_bound_ms(steps, FILT_DEP_OPS)
     log(f"[time] {card} | filtfilt_chain {len(coeffs)} filters B={b} "
         f"T_pad={t_pad} C={c} (phase 7's corpus build, lengths "
         f"{min(lens)}..{max(lens)}): kernel {ms:.4f} ms/launch, plain "
         f"{plain_ms:.2f} ms (CPU tensors, torch.equal to the kernel), "
         f"bound {bound_ms:.5f} ms ({bound_by}), "
         f"{bound_ms / ms:.2%} of bound; the dependent chain of the longest "
-        f"column: {steps} steps, {ns_step:.2f} ns a step")
+        f"column: {steps} steps, {ns_step:.2f} ns a step; latency bound "
+        f"{fmt_ms(lat_ms)} ({steps} steps x {FILT_DEP_OPS} dependent FP32 "
+        f"operations x {DEP_CYCLES} cycles at the maximum SM clock "
+        f"{max_sm_clock_hz()} Hz)")
     by_path = {path: counts["filtfilt_chain"]
                for path, counts in path_launches.items()}
     return {"name": "filtfilt_chain", "route": "cuda",
@@ -3106,7 +3481,7 @@ def time_filtfilt(card, path_launches, corpus_inputs, errs, build_s,
             "max_abs_err": err, "max_abs_err_phase2": errs["filtfilt_chain"],
             "ms": ms, "plain_ms": plain_ms, "plain_on": "cpu",
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "chain_steps": steps,
+            "latency_bound_ms": lat_ms, "chain_steps": steps,
             "ns_per_step": ns_step, "corpus_build_s": build_s,
             "streaming_recompute_ms": stream_latency}
 
@@ -3169,7 +3544,8 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT,
                                                                    "build"))
     try:
-        serve_launches, vocoded_launches = serve(card, work)
+        serve_launches, vocoded_launches, int8_launches, int8_bundle = \
+            serve(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     lap("serve")
@@ -3221,6 +3597,16 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     lap("disk")
 
+    # 7b. record, clean, featurize and serve a session --------------------
+    work = tempfile.mkdtemp(prefix="chip_smoke_capture_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        capture_launches = capture_run(card, work, int8_bundle)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del int8_bundle
+    lap("capture")
+
     # 8. kernel timings ----------------------------------------------------
     path_launches = {
         "serve": serve_launches, "train": train_launches,
@@ -3229,6 +3615,7 @@ def main() -> int:
         "recognition_serve": rec_serve_launches,
         "streaming": stream_launches, "disk": disk_launches,
         "serve_vocoded": vocoded_launches, "gan": gan_launches,
+        "serve_int8": int8_launches, "capture": capture_launches,
         **disk_vocoder_launches}
     kernels = time_kernels(card, path_launches, errs, dtw_inputs,
                            aligned_inputs, rec_ctc)

@@ -11,10 +11,19 @@ the end, which in a padded input is ``relu(bn(conv(0)))``, not zero.
 Bundle layout (``directory/``)::
 
     manifest.json   kind, t_buckets, num_features, num_raw_channels,
-                    quantize (null), charset (recognition),
+                    quantize (null or "int8"), charset (recognition),
                     audio_normalizer (transduction, optional: the mel
                     denormalization means and stddevs)
-    model.pt        reference-layout state dict
+    model.pt        reference-layout state dict; in an int8 bundle each
+                    GEMM weight is {"int8": int8 tensor, "scale": float32
+                    scale} (``quantize_state``)
+
+An int8 bundle (``quantize="int8"``, the CLI's ``--export_int8``) holds the
+GEMM weights as JAX's ``quantize_tree`` does: symmetric int8 with one
+float32 scale per slice of the contraction axis. ``ServingBundle`` keeps
+them resident as int8 on its device and dequantizes them to float32 on
+every forward, where the JAX export dequantizes inside its jit; the
+encoder then casts to its compute dtype as it does any weight.
 
 A vocoder bundle (``save_vocoder_bundle``) holds the HiFi-GAN generator
 with its weight norm folded: ``manifest.json`` (kind ``vocoder``, mel-frame
@@ -28,7 +37,7 @@ trainers write every epoch; a transduction bundle embeds the normalizer of
 
     python -m silent_speech_tpu_torch.eval.export --models run/model.pt \
         --output_directory serving/ [--recognition] [--t_buckets 256,512] \
-        [--normalizers_file normalizers.pkl]
+        [--normalizers_file normalizers.pkl] [--export_int8]
 """
 
 from __future__ import annotations
@@ -37,13 +46,16 @@ import argparse
 import dataclasses
 import json
 import os
-from typing import Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
+from torch.nn.utils import parametrize
 
 from ..config import DataConfig
 from ..data.normalizers import load_normalizers
+from ..models.convert import state_leaves
 from ..models.encoder import EMGEncoder
 from ..models.hifigan import Generator, HiFiGANConfig
 from ..text import CHARS
@@ -66,6 +78,94 @@ N_FEATURES = 112
 N_RAW_CHANNELS = 8
 
 
+# --------------------------------------------------------------------------
+# int8 weight-only quantization (serving)
+# --------------------------------------------------------------------------
+
+QUANTIZE = (None, "int8")
+_QKEYS = frozenset(("int8", "scale"))
+# the flax leaf names JAX quantizes: Dense/Conv kernels and the attention
+# projections (silent_speech_tpu/eval/export.py:96)
+_QNAMES = frozenset(("kernel", "w_q", "w_k", "w_v", "w_o"))
+# the torch dim of the flax leaf's second-to-last axis, the contraction,
+# under each map of models/convert.py: Dense (in, out) → (out, in) and Conv
+# (k, in, out) → (out, in, k) put it at dim 1; the projections keep flax's
+# (H, D, d_head) and (H, d_head, D)
+_CONTRACTION_DIM = {"dense": 1, "conv": 1, "same": -2}
+
+
+def _quantize_leaf(w: torch.Tensor, dim: int) -> dict:
+    # float32 in JAX's order: max|w| / 127, clamped at 1e-12, then w / scale
+    # rounded half to even and clipped to ±127
+    scale = (w.abs().amax(dim=dim, keepdim=True) / 127.0).clamp_min(1e-12)
+    q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+    return {"int8": q, "scale": scale}
+
+
+def is_quantized_leaf(node) -> bool:
+    return isinstance(node, dict) and set(node) == _QKEYS
+
+
+def quantize_state(state: Mapping[str, torch.Tensor], min_size: int = 4096
+                   ) -> Dict[str, object]:
+    """Per-channel symmetric int8 for every float GEMM weight of a
+    reference-layout encoder state with at least ``min_size`` elements, as
+    JAX's ``quantize_tree`` on the flax tree: the leaves are chosen by
+    their flax names through ``models/convert.py``'s map (so the relative
+    tables and the norms never are), and the int8 values and scales equal
+    JAX's after the layout map. Everything else passes through."""
+    leaves = {key: (path[-1], kind) for key, path, kind
+              in state_leaves(state) if path}
+    out: Dict[str, object] = {}
+    for key, w in state.items():
+        name, kind = leaves.get(key, ("", "same"))
+        if (name in _QNAMES and w.ndim >= 2 and w.numel() >= min_size
+                and w.is_floating_point()):
+            out[key] = _quantize_leaf(w.float(), _CONTRACTION_DIM[kind])
+        else:
+            out[key] = w
+    return out
+
+
+def dequantize_state(qstate: Mapping[str, object]
+                     ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``quantize_state``: ``int8 · scale`` in float32."""
+    return {k: v["int8"] * v["scale"] if is_quantized_leaf(v) else v
+            for k, v in qstate.items()}
+
+
+class Int8Weight(nn.Module):
+    """A parametrization: the weight is ``int8 · scale`` in float32,
+    computed on every access from the int8 original and the scale, both
+    resident on the module's device."""
+
+    def __init__(self, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("scale", scale)
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        return q * self.scale
+
+
+def _int8_encoder(qstate: Mapping[str, object], compute_dtype: str
+                  ) -> EMGEncoder:
+    """The encoder of a quantized state with each quantized weight held as
+    its int8 tensor under an ``Int8Weight`` parametrization."""
+    model = EMGEncoder.from_state_dict(dequantize_state(qstate),
+                                       compute_dtype=compute_dtype)
+    for key, leaf in qstate.items():
+        if not is_quantized_leaf(leaf):
+            continue
+        module_name, _, name = key.rpartition(".")
+        module = model.get_submodule(module_name)
+        delattr(module, name)
+        module.register_parameter(
+            name, nn.Parameter(leaf["int8"], requires_grad=False))
+        parametrize.register_parametrization(
+            module, name, Int8Weight(leaf["scale"]), unsafe=True)
+    return model
+
+
 def _check_kind(model: EMGEncoder, kind: str) -> None:
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
@@ -79,25 +179,32 @@ def _check_kind(model: EMGEncoder, kind: str) -> None:
 def save_serving_bundle(model: EMGEncoder, kind: str, directory: str,
                         t_buckets: Sequence[int] = DEFAULT_T_BUCKETS,
                         charset: Optional[Sequence[str]] = None,
-                        audio_normalizer=None) -> str:
+                        audio_normalizer=None,
+                        quantize: Optional[str] = None) -> str:
     """Write ``model`` as a serving bundle of ``kind`` into ``directory``
     and return the directory. ``audio_normalizer`` (a
     ``FeatureNormalizer``, the dataset's ``mfcc_norm``) embeds the mel
     denormalization statistics, so that a vocoder runs without the
-    corpus."""
+    corpus. ``quantize="int8"`` stores the weights ``quantize_state``
+    quantizes as int8."""
     _check_kind(model, kind)
+    if quantize not in QUANTIZE:
+        raise ValueError(f"quantize must be one of {QUANTIZE}, got "
+                         f"{quantize!r}")
     for t in t_buckets:
         if t <= 0 or t % 32:
             raise ValueError(f"bucket {t} must be a positive multiple of 32")
     os.makedirs(directory, exist_ok=True)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if quantize == "int8":
+        state = quantize_state(state)
     torch.save(state, os.path.join(directory, _WEIGHTS))
     manifest = {
         "kind": kind,
         "t_buckets": sorted(int(t) for t in t_buckets),
         "num_features": N_FEATURES,
         "num_raw_channels": N_RAW_CHANNELS,
-        "quantize": None,
+        "quantize": quantize,
     }
     if kind == "recognition":
         manifest["charset"] = list(CHARS if charset is None else charset)
@@ -137,7 +244,9 @@ def save_vocoder_bundle(vocoder, directory: str,
 
 class ServingBundle:
     """A loaded bundle on ``device``: the encoder in ``dtype`` compute, or
-    (kind ``vocoder``) the generator in float32, as the JAX bundle's."""
+    (kind ``vocoder``) the generator in float32, as the JAX bundle's. An
+    int8 bundle's quantized weights stay int8 on the device and are
+    dequantized on every forward."""
 
     def __init__(self, directory: str, device=None,
                  dtype: torch.dtype = torch.bfloat16):
@@ -145,8 +254,9 @@ class ServingBundle:
         with open(os.path.join(directory, _MANIFEST)) as f:
             self.manifest = json.load(f)
         self.kind = self.manifest["kind"]
-        if self.manifest.get("quantize") is not None:
-            raise ValueError("quantized bundles are not supported yet")
+        quantize = self.manifest.get("quantize")
+        if quantize not in QUANTIZE:
+            raise ValueError(f"unknown quantization {quantize!r}")
         if self.kind == "vocoder":
             self.model = Generator(HiFiGANConfig.from_dict(
                 self.manifest["generator_config"]))
@@ -156,8 +266,9 @@ class ServingBundle:
         else:
             state = torch.load(os.path.join(directory, _WEIGHTS),
                                map_location="cpu", weights_only=True)
-            self.model = EMGEncoder.from_state_dict(
-                state, compute_dtype=str(dtype).removeprefix("torch."))
+            cdt = str(dtype).removeprefix("torch.")
+            self.model = (_int8_encoder(state, cdt) if quantize else
+                          EMGEncoder.from_state_dict(state, compute_dtype=cdt))
             _check_kind(self.model, self.kind)
         self.model.to(self.device).eval()
 
@@ -253,6 +364,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                     default=DataConfig().normalizers_file,
                     help="pickled feature normalizers: a transduction "
                          "bundle embeds the mel normalizer when it exists")
+    ap.add_argument("--export_int8", action="store_true",
+                    help="weight-only per-channel int8 for the GEMM "
+                         "weights (smaller resident weights)")
     args = ap.parse_args(argv)
     state = torch.load(args.models[0], map_location="cpu", weights_only=True)
     model = EMGEncoder.from_state_dict(state)
@@ -263,9 +377,11 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     out = save_serving_bundle(
         model, kind, args.output_directory,
         t_buckets=[int(t) for t in args.t_buckets.split(",")],
-        audio_normalizer=audio_norm)
+        audio_normalizer=audio_norm,
+        quantize="int8" if args.export_int8 else None)
     print(f"wrote {kind} serving bundle → {out} (mel normalizer: "
-          f"{'embedded' if audio_norm is not None else 'absent'})")
+          f"{'embedded' if audio_norm is not None else 'absent'}; "
+          f"weights: {'int8' if args.export_int8 else 'float32'})")
     return out
 
 

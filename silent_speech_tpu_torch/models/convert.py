@@ -12,7 +12,8 @@ Own copy of the mapping in the JAX package's ``models/convert.py``
 The input is the tree with numpy leaves; the output loads into
 ``models.encoder.EMGEncoder`` with ``strict=True``. With ``batch_stats``
 None (a gradient tree, which has no statistics) the running statistics are
-left out.
+left out. ``encoder_leaves`` holds the mapping as data, so that
+``eval/export.quantize_state`` finds each torch weight's flax name.
 
 The vocoder's trees map the same way: ``hifigan_params_to_torch`` gives the
 official HiFi-GAN generator state dict (the inverse of the JAX package's
@@ -22,68 +23,110 @@ discriminator names (the Flax module names, dot-joined).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 
-def jax_to_torch(params: dict, batch_stats: Optional[dict] = None
-                 ) -> Dict[str, torch.Tensor]:
-    out: Dict[str, np.ndarray] = {}
+def encoder_leaves(n_layers: int, residual: Sequence[bool], aux: bool
+                   ) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """Every entry of the encoder's state dict as ``(torch key, flax path,
+    map)``. The path starts at ``params`` or ``batch_stats``; ``map`` is
+    ``"dense"`` (kernel (in, out) → (out, in)), ``"conv"`` ((k, in, out) →
+    (out, in, k)), ``"rel"`` (a trailing axis added), ``"count"`` (BatchNorm's
+    ``num_batches_tracked``, 0) or ``"same"``. ``residual[i]`` says whether
+    ResBlock i has its 1×1 shortcut; ``aux`` whether the phoneme head
+    exists."""
+    leaves: List[Tuple[str, Tuple[str, ...], str]] = []
 
-    def dense(prefix, p):
-        out[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
-        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    def dense(key, path, kind="dense"):
+        leaves.append((f"{key}.weight", ("params",) + path + ("kernel",),
+                       kind))
+        leaves.append((f"{key}.bias", ("params",) + path + ("bias",),
+                       "same"))
 
-    def conv(prefix, p):
-        out[f"{prefix}.weight"] = np.transpose(np.asarray(p["kernel"]),
-                                               (2, 1, 0))
-        out[f"{prefix}.bias"] = np.asarray(p["bias"])
-
-    def bn(prefix, p, s):
-        out[f"{prefix}.weight"] = np.asarray(p["scale"])
-        out[f"{prefix}.bias"] = np.asarray(p["bias"])
-        if s is None:
-            return
-        out[f"{prefix}.running_mean"] = np.asarray(s["mean"])
-        out[f"{prefix}.running_var"] = np.asarray(s["var"])
-        out[f"{prefix}.num_batches_tracked"] = np.asarray(0)
+    def norm(key, path, stats):
+        leaves.append((f"{key}.weight", ("params",) + path + ("scale",),
+                       "same"))
+        leaves.append((f"{key}.bias", ("params",) + path + ("bias",),
+                       "same"))
+        if stats:
+            for name, stat in (("running_mean", "mean"),
+                               ("running_var", "var")):
+                leaves.append((f"{key}.{name}",
+                               ("batch_stats",) + path + (stat,), "same"))
+            leaves.append((f"{key}.num_batches_tracked", (), "count"))
 
     for i in range(3):
-        blk_p = params[f"res{i}"]
-        blk_s = (dict.fromkeys(("bn1", "bn2", "res_norm")) if batch_stats
-                 is None else batch_stats[f"res{i}"])
-        rp = f"conv_blocks.{i}"
-        conv(f"{rp}.conv1", blk_p["conv1"])
-        conv(f"{rp}.conv2", blk_p["conv2"])
-        bn(f"{rp}.bn1", blk_p["bn1"], blk_s["bn1"])
-        bn(f"{rp}.bn2", blk_p["bn2"], blk_s["bn2"])
-        if "residual_path" in blk_p:
-            conv(f"{rp}.residual_path", blk_p["residual_path"])
-            bn(f"{rp}.res_norm", blk_p["res_norm"], blk_s["res_norm"])
+        key, path = f"conv_blocks.{i}", (f"res{i}",)
+        dense(f"{key}.conv1", path + ("conv1",), "conv")
+        dense(f"{key}.conv2", path + ("conv2",), "conv")
+        norm(f"{key}.bn1", path + ("bn1",), True)
+        norm(f"{key}.bn2", path + ("bn2",), True)
+        if residual[i]:
+            dense(f"{key}.residual_path", path + ("residual_path",), "conv")
+            norm(f"{key}.res_norm", path + ("res_norm",), True)
 
-    dense("w_raw_in", params["w_raw_in"])
-    i = 0
-    while f"layer{i}" in params:
-        layer = params[f"layer{i}"]
-        rp = f"transformer.layers.{i}"
-        sa = layer["self_attn"]
+    dense("w_raw_in", ("w_raw_in",))
+    for i in range(n_layers):
+        key, path = f"transformer.layers.{i}", (f"layer{i}",)
         for w in ("w_q", "w_k", "w_v", "w_o"):
-            out[f"{rp}.self_attn.{w}"] = np.asarray(sa[w])
-        out[f"{rp}.self_attn.relative_positional.embeddings"] = np.asarray(
-            sa["rel_emb"])[..., None]
-        dense(f"{rp}.linear1", layer["linear1"])
-        dense(f"{rp}.linear2", layer["linear2"])
-        for n in ("norm1", "norm2"):
-            out[f"{rp}.{n}.weight"] = np.asarray(layer[n]["scale"])
-            out[f"{rp}.{n}.bias"] = np.asarray(layer[n]["bias"])
-        i += 1
+            leaves.append((f"{key}.self_attn.{w}",
+                           ("params",) + path + ("self_attn", w), "same"))
+        leaves.append((f"{key}.self_attn.relative_positional.embeddings",
+                       ("params",) + path + ("self_attn", "rel_emb"), "rel"))
+        dense(f"{key}.linear1", path + ("linear1",))
+        dense(f"{key}.linear2", path + ("linear2",))
+        norm(f"{key}.norm1", path + ("norm1",), False)
+        norm(f"{key}.norm2", path + ("norm2",), False)
 
-    dense("w_out", params["w_out"])
-    if "w_aux" in params:
-        dense("w_aux", params["w_aux"])
-    return {k: torch.tensor(v) for k, v in out.items()}
+    dense("w_out", ("w_out",))
+    if aux:
+        dense("w_aux", ("w_aux",))
+    return leaves
+
+
+def state_leaves(state: Mapping[str, object]
+                 ) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """``encoder_leaves`` of the architecture a reference-layout state dict
+    describes."""
+    n_layers = 0
+    while f"transformer.layers.{n_layers}.linear1.weight" in state:
+        n_layers += 1
+    return encoder_leaves(
+        n_layers, [f"conv_blocks.{i}.residual_path.weight" in state
+                   for i in range(3)], "w_aux.weight" in state)
+
+
+_MAPS = {"dense": lambda a: a.T,
+         "conv": lambda a: np.transpose(a, (2, 1, 0)),
+         "rel": lambda a: a[..., None],
+         "same": lambda a: a}
+
+
+def jax_to_torch(params: dict, batch_stats: Optional[dict] = None
+                 ) -> Dict[str, torch.Tensor]:
+    n_layers = 0
+    while f"layer{n_layers}" in params:
+        n_layers += 1
+    leaves = encoder_leaves(
+        n_layers, ["residual_path" in params[f"res{i}"] for i in range(3)],
+        "w_aux" in params)
+    trees = {"params": params, "batch_stats": batch_stats}
+    out: Dict[str, torch.Tensor] = {}
+    for key, path, kind in leaves:
+        if kind == "count":
+            if batch_stats is not None:
+                out[key] = torch.tensor(np.asarray(0))
+            continue
+        node = trees[path[0]]
+        if node is None:   # a gradient tree has no statistics
+            continue
+        for name in path[1:]:
+            node = node[name]
+        out[key] = torch.tensor(_MAPS[kind](np.asarray(node)))
+    return out
 
 
 def _conv(out: dict, prefix: str, p: dict) -> None:

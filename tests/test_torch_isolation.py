@@ -12,6 +12,7 @@ from silent_speech_tpu_torch import (bench, bench_vocoder, evaluate,
                                      finetune_vocoder, make_normalizers,
                                      make_testset, make_vocoder_trainset,
                                      recognition_model, transduction_model)
+from silent_speech_tpu_torch.capture import clean_audio, session
 from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
                                             RecognitionTrainConfig,
                                             TransductionTrainConfig)
@@ -28,6 +29,7 @@ from silent_speech_tpu_torch.ops import build
 from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
 from silent_speech_tpu_torch.train.transduction import TransductionTrainer
 from silent_speech_tpu_torch.train.vocoder import VocoderTrainer
+from silent_speech_tpu_torch.utils import debug_viz, profiling
 from silent_speech_tpu_torch.utils import device as device_module
 from silent_speech_tpu_torch.utils import native
 from silent_speech_tpu_torch.utils.device import card_info, resolve_device
@@ -314,3 +316,45 @@ def test_the_filter_kernel_builds_from_the_repo_s_sources_alone():
     assert includes == ["#include <cuda_runtime.h>"]
     assert "filtfilt" in build.kernel_names()
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_an_int8_bundle_raises_without_a_card(no_card, tmp_path):
+    cfg = ModelConfig(model_size=32, num_layers=1, num_heads=2,
+                      dim_feedforward=128, relative_positional_distance=4,
+                      compute_dtype="float32")
+    model = EMGEncoder(38, None, cfg).init_weights(
+        torch.Generator().manual_seed(0))
+    d = export.save_serving_bundle(model, "recognition", str(tmp_path / "q"),
+                                   t_buckets=(32,), quantize="int8")
+    for call in (lambda: export.ServingBundle.load(d),
+                 lambda: server.main(["--recognition_bundle", d,
+                                      "--port", "0"])):
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            call()
+    bundle = export.ServingBundle.load(d, device="cpu")
+    assert {p.device.type for p in bundle.model.parameters()} == {"cpu"}
+    assert torch.int8 in {p.dtype for p in bundle.model.parameters()}
+
+
+def test_the_capture_tools_touch_no_device(tmp_path, monkeypatch):
+    # the session, the cleaning, the profiling timer and the debug plots
+    # run on the host: with every way to a device made to fail, they run
+    def refuse(*args, **kwargs):
+        raise AssertionError("a host tool asked for a device")
+
+    monkeypatch.setattr(torch.cuda, "is_available", refuse)
+    monkeypatch.setattr(torch.cuda, "device_count", refuse)
+    monkeypatch.setattr(device_module, "resolve_device", refuse)
+    book = tmp_path / "b.txt"
+    book.write_text("One here. Two there.")
+    monkeypatch.setattr("builtins.input", lambda _prompt: "")
+    out = str(tmp_path / "s")
+    assert session.main(["--debug", "--seconds", "0.05", "--book_file",
+                         str(book), "--output_directory", out]) == 2
+    assert len(clean_audio.main([out, "--no_denoise"])) == 2
+    timer = profiling.StepTimer(log_every=0)
+    timer.tick()
+    timer.tick()
+    assert timer.steps_per_sec > 0
+    path = str(tmp_path / "a.png")
+    assert debug_viz.plot_alignment([0, 1, 1], save_path=path) == path

@@ -804,3 +804,66 @@ def test_a_streaming_recompute_on_the_card_is_the_offline_predict(card):
     lp = trainer.predict_logits(featurize_raw_window(x))
     assert text == trainer.text_transform.int_to_text(
         greedy_ctc_decode(lp, trainer.blank_id))
+
+
+def _int8_bundles(tmp_path, kind="transduction"):
+    """An int8 bundle of a small random encoder (4 heads of 16 for the
+    attention kernel) and the bf16 bundle of its dequantized weights."""
+    from silent_speech_tpu_torch.eval import export
+
+    cfg = ModelConfig(model_size=64, num_layers=2, num_heads=4,
+                      dim_feedforward=128, relative_positional_distance=16)
+    heads = (80, 48) if kind == "transduction" else (38, None)
+    model = EMGEncoder(*heads, cfg).init_weights(
+        torch.Generator().manual_seed(4))
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    export.save_serving_bundle(model, kind, str(tmp_path / "q"),
+                               t_buckets=(64, 256), quantize="int8")
+    twin = EMGEncoder.from_state_dict(
+        export.dequantize_state(export.quantize_state(state)))
+    export.save_serving_bundle(twin, kind, str(tmp_path / "twin"),
+                               t_buckets=(64, 256))
+    return [export.ServingBundle.load(str(tmp_path / d), device="cuda")
+            for d in ("q", "twin")]
+
+
+def test_int8_bundle_weights_stay_int8_on_the_card(card, tmp_path):
+    bundle, _ = _int8_bundles(tmp_path)
+    int8 = [p for n, p in bundle.model.named_parameters()
+            if n.endswith(".original")]
+    assert int8 and all(p.dtype == torch.int8 and p.is_cuda for p in int8)
+    scales = [b for n, b in bundle.model.named_buffers()
+              if n.endswith(".scale")]
+    assert len(scales) == len(int8)
+    assert all(s.dtype == torch.float32 and s.is_cuda for s in scales)
+
+
+@pytest.mark.parametrize("kind", ["transduction", "recognition"])
+def test_int8_bundle_equals_its_dequantized_twin_on_the_card(card, tmp_path,
+                                                             kind):
+    bundle, twin = _int8_bundles(tmp_path, kind)
+    rng = np.random.default_rng(0)
+    for t in (50, 200):
+        emg = np.zeros((t, 112), np.float32)
+        raw = rng.normal(size=(8 * t, 8)).astype(np.float32)
+        before = rel_attention.launches
+        out = bundle.predict(emg, raw, np.zeros(t, np.int64))
+        assert rel_attention.launches == before + 2   # 2 layers
+        ref = twin.predict(emg, raw, np.zeros(t, np.int64))
+        assert np.isfinite(out).all()
+        assert torch.equal(torch.from_numpy(out), torch.from_numpy(ref))
+
+
+def test_trace_records_the_card_s_kernels(card, tmp_path):
+    import json
+
+    from silent_speech_tpu_torch.utils.profiling import trace
+
+    q, k, v, e = _inputs(256, torch.bfloat16)
+    with trace(str(tmp_path)):
+        rel_attention(q, k, v, e, 100, 256)
+        torch.cuda.synchronize()
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(ev.get("cat") == "kernel" and "fwd_kernel" in ev.get("name", "")
+               for ev in events)
