@@ -28,6 +28,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    high-pass in one launch) at 8 utterances x 8 channels of ragged lengths
    (one at the high-pass's padlen + 1), torch.equal to its plain version
    on the card, in one launch and split in two, and between two calls;
+   and the attention kernels on a shard of a batch (rows 6.., heads 8.. of
+   16, the dropout cells offset as a data and a model rank offset them):
+   the shard's forward and dQ, dK, dV torch.equal to the whole batch's
+   slices, each output against the plain version with the same offsets,
+   and the default offsets torch.equal to (0, 0, H), bf16 and f32;
 3. serve: init a full-width transduction model and a full-width
    recognition model from a seed, save each as a reference-layout
    ``model.pt``, export both with the export CLI, load the bundles on the
@@ -152,6 +157,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    by phase 7's bounds; each utterance is served from phase 3's int8
    transduction bundle (6 forward attention launches each); the phase
    prints its wall time;
+9. the mesh: a full-width transduction step on a 1x1 data x model mesh
+   over a real NCCL process group torch.equal to the plain trainer's
+   (loss, gradients, the state after the update), both timed in turns
+   (steps/s, collectives a step; under the profiler, device busy and the
+   host ops' self CPU time of a step);
+   ``dryrun_multichip(torch.cuda.device_count(), full_width=True)``, the
+   seven checks of the JAX dry run against one process, its lines printed
+   as ``[mesh.dryrun]``; the process group destroyed; then ``entry()``'s
+   full-width forward (6 forward attention launches) against the plain
+   attention, and its time. The kernels line counts the launches of the
+   mesh step and the dry run as ``mesh``, of ``entry()`` as ``entry``;
 8. time the requests per bucket (mel-only as before, vocoded, and from
    the int8 bundles beside the bf16 ones), the forward and ``vocode()``
    per bucket (the int8 forward with and without its dequantization, and
@@ -752,6 +768,85 @@ def check_kernels():
     check_ctc(errs)
     check_filtfilt(errs)
     return errs
+
+
+# the attention kernels on a shard of the batch: rows b_offset.. and heads
+# h_offset.. of a batch with H_total heads (parallel/: a data rank's
+# chunks, a model rank's heads) at the training step's T and dropout
+SHARD_CASE = dict(b=4, h_total=16, b_offset=6, h_offset=8)
+
+
+def check_offsets(errs):
+    """Phase 2, the dropout-cell offsets of K1f and K1b: a shard's forward
+    and its dQ, dK, dV are torch.equal to the slice of the whole batch's
+    (each (row, head) cell is computed alone), every output of the shard
+    is held against the plain version with the same offsets, and a call
+    with the defaults is torch.equal to one with (0, 0, H)."""
+    import torch
+    from silent_speech_tpu_torch.ops.rel_attention import (
+        attention_drop_threshold, rel_attention, rel_attention_bwd,
+        rel_attention_plain)
+
+    drop = attention_drop_threshold(0.2)
+    t, c = TRAIN_BT[1], SHARD_CASE
+    b0, b, h0, ht = c["b_offset"], c["b"], c["h_offset"], c["h_total"]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        whole = [torch.randn(b0 + b, ht, t, 96, device="cuda", generator=g)
+                 for _ in range(4)]
+        e_all = torch.randn(ht, 199, 96, device="cuda", generator=g) \
+            * 96 ** -0.5
+        q, k, v, dout = (x.to(dtype).contiguous() for x in whole)
+        e = e_all.to(dtype).contiguous()
+        rows, heads = slice(b0, b0 + b), slice(h0, h0 + 8)
+        qs, ks, vs, ds = (x[rows, heads].contiguous()
+                          for x in (q, k, v, dout))
+        es = e[heads].contiguous()
+        cells = dict(b_offset=b0, h_offset=h0, h_total=ht)
+        out = rel_attention(qs, ks, vs, es, 100, t, 11, drop, **cells)
+        full = rel_attention(q, k, v, e, 100, t, 11, drop)
+        torch.cuda.synchronize()
+        if not torch.equal(out, full[rows, heads]):
+            raise AssertionError(f"rel_attention_fwd {name}: the shard's "
+                                 f"output is not the whole batch's slice")
+        ref = rel_attention_plain(
+            qs, ks, vs, es, 100, t, 11, drop,
+            store_dtype=dtype if dtype == torch.bfloat16 else None, **cells)
+        err = (out.float() - ref.float()).abs().max().item()
+        grads = rel_attention_bwd(qs, ks, vs, es, ds, 100, t, 11, drop,
+                                  **cells)
+        grads_full = rel_attention_bwd(q, k, v, e, dout, 100, t, 11, drop)
+        for got, want in zip(grads[:3], grads_full[:3]):
+            if not torch.equal(got, want[rows, heads]):
+                raise AssertionError(f"rel_attention_bwd {name}: the "
+                                     f"shard's dQ/dK/dV are not the whole "
+                                     f"batch's slices")
+        leaves = [x.detach().float().requires_grad_() for x in
+                  (qs, ks, vs, es)]
+        plain = rel_attention_plain(*leaves, 100, t, 11, drop, **cells)
+        plain.backward(ds.float())
+        bwd_err = max(
+            ((a.float() - p.grad).abs().max()
+             / p.grad.abs().max().clamp_min(1e-30)).item()
+            for a, p in zip(grads, leaves))
+        same = [rel_attention(qs, ks, vs, es, 100, t, 11, drop),
+                rel_attention(qs, ks, vs, es, 100, t, 11, drop, b_offset=0,
+                              h_offset=0, h_total=8)]
+        if not torch.equal(*same):
+            raise AssertionError("the default cells differ from (0, 0, H)")
+        ok = err <= KERNEL_ATOL[name] and bwd_err <= BWD_RTOL[name]
+        log(f"[kernel] rel_attention {name} shard rows {b0}+{b} heads "
+            f"{h0}+8 of {ht}, T={t} dropout 0.2: forward and dQ/dK/dV "
+            f"torch.equal to the whole batch's slices, defaults torch.equal "
+            f"to (0, 0, H); forward max_abs_err {err:.3g} (tolerance "
+            f"{KERNEL_ATOL[name]}), backward max err / max |grad| "
+            f"{bwd_err:.3g} (tolerance {BWD_RTOL[name]}) against the plain "
+            f"version with the same offsets")
+        if not ok:
+            raise AssertionError(f"rel_attention {name} with offsets "
+                                 f"disagrees with its plain version")
+        errs[("rel_attention_offsets", name)] = max(err, bwd_err)
 
 
 def filter_inputs(lengths, t_pad, seed):
@@ -3371,6 +3466,7 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
          "max_abs_err_unrounded_plain": errs[("rel_attention_fwd_unrounded",
                                               "bfloat16")],
          "max_abs_err_f32": errs[("rel_attention_fwd", "float32")],
+         "max_err_offsets": errs[("rel_attention_offsets", "bfloat16")],
          "ms": fwd_ms, "device_ms": fwd_dev_ms, "ms_f32": fwd_f32_ms,
          "plain_ms": fwd_plain,
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
@@ -3385,6 +3481,7 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
          "shape": shape, **launches("rel_attention_bwd"),
          "max_abs_err": errs[("rel_attention_bwd", "bfloat16")],
          "max_abs_err_f32": errs[("rel_attention_bwd", "float32")],
+         "max_err_offsets": errs[("rel_attention_offsets", "bfloat16")],
          "ms": bwd_ms, "stages_ms": stages_ms, "ms_f32": bwd_f32_ms,
          "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": None,
@@ -3486,6 +3583,176 @@ def time_filtfilt(card, path_launches, corpus_inputs, errs, build_s,
             "streaming_recompute_ms": stream_latency}
 
 
+def host_self_ms(fn) -> dict:
+    """Self CPU ms of each host op of one call of ``fn`` under the
+    profiler (CPU activity alone), by op name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.self_cpu_time_total / 1e3
+            for ev in prof.key_averages()}
+
+
+# the mesh phase: rounds of steps in turns, plain trainer then the 1x1 mesh
+MESH_ROUNDS, MESH_STEPS = 3, 3
+
+
+def mesh_run(card):
+    """Phase 9: the data x model mesh over NCCL. A full-width transduction
+    step on the 1x1 mesh (a real NCCL process group of one rank) is
+    torch.equal to the plain trainer's step (loss, every gradient, every
+    weight and statistic after the update); both are timed in turns in
+    this call (steps/s, collectives a step; under the profiler, device
+    busy and the host ops' self CPU time); then
+    ``dryrun_multichip(torch.cuda.device_count(), full_width=True)``'s
+    seven checks; the process group is destroyed at the end. Then
+    ``entry()``'s forward (6 K1f launches) against the same forward with
+    the plain attention, and its time. Returns the launches of the mesh
+    path and of entry()."""
+    import torch
+    import torch.distributed as dist
+    from silent_speech_tpu_torch.bench import example_sets
+    from silent_speech_tpu_torch.graft_entry import dryrun_multichip, entry
+    from silent_speech_tpu_torch.models import transformer
+    from silent_speech_tpu_torch.ops.rel_attention import rel_attention_plain
+    from silent_speech_tpu_torch.parallel.collectives import calls
+    from silent_speech_tpu_torch.parallel.mesh import destroy, make_mesh
+    from silent_speech_tpu_torch.train.transduction import (
+        TransductionTrainer)
+
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        log(f"[mesh] {mesh}: backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}")
+        plain, meshed = TransductionTrainer(), TransductionTrainer(mesh=mesh)
+        plain.init_state(SEED)
+        meshed.init_state(SEED)
+        batches = [plain._pack(s) for s in example_sets()]
+        lr = plain.train_cfg.learning_rate
+        reset_launches()
+        calls.count = 0
+        out_m = meshed.train_step(batches[0], lr)
+        torch.cuda.synchronize()
+        step_launches, per_step = read_launches(), calls.count
+        out_p = plain.train_step(batches[0], lr)
+        layers = plain.model_cfg.num_layers
+        expected = launch_counts(
+            rel_attention_fwd=layers, rel_attention_bwd=layers,
+            dtw_align=1 if batches[0].num_silent else 0)
+        if step_launches != expected:
+            raise AssertionError(f"mesh step launches {step_launches}, "
+                                 f"expected {expected}")
+        grads_equal = all(
+            torch.equal(a.grad, b.grad) for a, b in
+            zip(meshed.model.parameters(), plain.model.parameters()))
+        state_equal = _state_equal(meshed.model.state_dict(),
+                                   plain.model.state_dict())
+        loss_equal = torch.equal(out_m.loss, out_p.loss)
+        log(f"[mesh] {card} | full-width step on the 1x1 NCCL mesh vs the "
+            f"plain trainer, one batch from seed {SEED}: loss "
+            f"{float(out_m.loss):.6f} vs {float(out_p.loss):.6f}, "
+            f"torch.equal loss {loss_equal}, gradients {grads_equal}, "
+            f"weights and statistics after the update {state_equal}; "
+            f"{per_step} collectives a step, launches {step_launches}")
+        if not (loss_equal and grads_equal and state_equal):
+            raise AssertionError("the 1x1 mesh step is not torch.equal to "
+                                 "the plain step")
+
+        rates = {"plain": [], "mesh": []}
+        for r in range(MESH_ROUNDS):
+            for name, t in (("plain", plain), ("mesh", meshed)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(MESH_STEPS):
+                    t.train_step(batches[(r + i) % len(batches)], lr)
+                torch.cuda.synchronize()
+                rates[name].append(MESH_STEPS / (time.perf_counter() - t0))
+        ms = {k: 1e3 / float(np.median(v)) for k, v in rates.items()}
+        log(f"[time] {card} | transduction step, plain trainer vs 1x1 NCCL "
+            f"mesh in turns ({MESH_ROUNDS} rounds of {MESH_STEPS}): steps/s "
+            f"plain {[round(x, 3) for x in rates['plain']]} mesh "
+            f"{[round(x, 3) for x in rates['mesh']]}; ms a step (median) "
+            f"plain {ms['plain']:.2f} mesh {ms['mesh']:.2f} "
+            f"({ms['mesh'] - ms['plain']:+.2f})")
+        # where the mesh's time goes: one step of each under the profiler,
+        # device busy, then the host's ops by self CPU time (a step syncs
+        # with the card inside, so its host time cannot be read off a
+        # clock around the call)
+        busy, self_ms = {}, {}
+        for name, t in (("plain", plain), ("mesh", meshed)):
+            busy[name] = device_profile(
+                card, f"transduction step, {name} trainer",
+                lambda: t.train_step(batches[0], lr), top=3)
+            self_ms[name] = host_self_ms(lambda: t.train_step(batches[0],
+                                                               lr))
+        total = {k: sum(v.values()) for k, v in self_ms.items()}
+        extra = sorted(((self_ms["mesh"].get(k, 0.0)
+                         - self_ms["plain"].get(k, 0.0), k)
+                        for k in self_ms["mesh"]), reverse=True)[:8]
+        log(f"[time] {card} | host ops' self CPU ms a step (profiled, one "
+            f"step each): plain {total['plain']:.2f}, mesh "
+            f"{total['mesh']:.2f} ({total['mesh'] - total['plain']:+.2f} for "
+            f"{per_step} collectives); most added: "
+            + ", ".join(f"{k} +{d:.2f}" for d, k in extra)
+            + f"; device busy ms plain "
+            f"{busy['plain'] and round(busy['plain'][1], 3)}, mesh "
+            f"{busy['mesh'] and round(busy['mesh'][1], 3)}")
+        del plain, meshed, batches
+        torch.cuda.empty_cache()
+    finally:
+        destroy()
+
+    n = torch.cuda.device_count()
+    reset_launches()
+    t0 = time.perf_counter()
+    for line in dryrun_multichip(n, "cuda", full_width=True):
+        log(f"[mesh.dryrun] {line}")
+    dry_launches = read_launches()
+    log(f"[mesh] {card} | dryrun_multichip({n}, full_width=True) in "
+        f"{time.perf_counter() - t0:.1f} s, launches {dry_launches}")
+    if dist.is_initialized():
+        raise AssertionError("the mesh phase left a process group")
+    for k in ("rel_attention_fwd", "rel_attention_bwd", "dtw_align", "ctc"):
+        if not dry_launches[k]:
+            raise AssertionError(f"the dry run launched no {k}")
+    mesh_launches = {k: step_launches[k] + dry_launches[k]
+                     for k in step_launches}
+
+    forward, args = entry()
+    reset_launches()
+    mel, phone = forward(*args)
+    torch.cuda.synchronize()
+    entry_launches = read_launches()
+    if entry_launches != launch_counts(rel_attention_fwd=6):
+        raise AssertionError(f"entry() launched {entry_launches}")
+
+    def plain_attention(q, k, v, e, m, valid_len=None, seed=0, thresh=0,
+                        **cells):
+        return rel_attention_plain(q, k, v, e, m, valid_len, seed, thresh,
+                                   **cells)
+
+    with swapped(transformer, "rel_attention", plain_attention):
+        mel_p, phone_p = forward(*args)
+    rel = max(((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+              for a, b in ((mel, mel_p), (phone, phone_p)))
+    fwd_ms = cuda_time_ms(lambda: forward(*args), iters=10)
+    log(f"[time] {card} | entry(): full-width eval forward on "
+        f"{tuple(args[0].shape)} raw EMG, mel {tuple(mel.shape)}, "
+        f"{fwd_ms:.3f} ms; max error / max |out| against the plain "
+        f"attention {rel:.3g} (tolerance {SERVED_RTOL}); launches "
+        f"{entry_launches}")
+    if not (torch.isfinite(mel).all() and torch.isfinite(phone).all()) \
+            or rel > SERVED_RTOL:
+        raise AssertionError("entry()'s forward is not finite or parts "
+                             "from the plain attention")
+    return mesh_launches, entry_launches
+
+
 def main() -> int:
     import torch
 
@@ -3537,6 +3804,7 @@ def main() -> int:
 
     # 2. kernel vs plain ---------------------------------------------------
     errs = check_kernels()
+    check_offsets(errs)
     lap("kernels")
 
     # 3. serve -------------------------------------------------------------
@@ -3607,6 +3875,10 @@ def main() -> int:
     del int8_bundle
     lap("capture")
 
+    # 9. the mesh over NCCL, the dry run and entry() ----------------------
+    mesh_launches, entry_launches = mesh_run(card)
+    lap("mesh")
+
     # 8. kernel timings ----------------------------------------------------
     path_launches = {
         "serve": serve_launches, "train": train_launches,
@@ -3616,6 +3888,7 @@ def main() -> int:
         "streaming": stream_launches, "disk": disk_launches,
         "serve_vocoded": vocoded_launches, "gan": gan_launches,
         "serve_int8": int8_launches, "capture": capture_launches,
+        "mesh": mesh_launches, "entry": entry_launches,
         **disk_vocoder_launches}
     kernels = time_kernels(card, path_launches, errs, dtw_inputs,
                            aligned_inputs, rec_ctc)

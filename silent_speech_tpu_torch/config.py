@@ -28,6 +28,16 @@ class ModelConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The data × model mesh (``parallel/mesh.py``), the JAX
+    configuration's ``MeshConfig``."""
+
+    # -1 = every rank the model axis leaves goes on the data axis
+    data_parallel: int = -1
+    model_parallel: int = 1
+
+
+@dataclass
 class DataConfig:
     """Dataset discovery (reference ``read_emg.py:21-25``) and the packing
     of training batches (reference ``transduction_model.py:191`` for

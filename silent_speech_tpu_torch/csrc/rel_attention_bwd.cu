@@ -75,7 +75,8 @@ rel_attention_bwd_kernel(const float* __restrict__ q,
                          float* __restrict__ dvp, float* __restrict__ dep,
                          int H, int T_len, int dh, int m, int valid_len,
                          float scale, unsigned seed, unsigned drop_threshold,
-                         float drop_scale) {
+                         float drop_scale,
+                         int b_offset, int h_offset, int H_total) {
   extern __shared__ float smem[];
   const Band g(dh, m);
   const int mw = mask_words(m);
@@ -113,7 +114,8 @@ rel_attention_bwd_kernel(const float* __restrict__ q,
                dh, m, valid_len, scale);
 
   // The forward's keep mask, one bit per band cell, and D = 0.
-  const unsigned cell_seed = seed + (unsigned)(b * H + h);
+  const unsigned cell_seed =
+      seed + (unsigned)((b_offset + b) * H_total + h_offset + h);
   for (int i = warp; i < BQ; i += NWARPS) {
     for (int j0 = 0; j0 < nk; j0 += 32) {
       const int j = j0 + lane;
@@ -414,9 +416,12 @@ int rel_attention_bwd(const void* q, const void* k, const void* v,
                       void* dv, void* de, void* dkp, void* dvp, void* dep,
                       int B, int H, int T_len, int dh, int m, int valid_len,
                       float scale, unsigned seed, unsigned drop_threshold,
-                      float drop_scale, int is_bf16, void* stream) {
+                      float drop_scale,
+                      int b_offset, int h_offset, int H_total, int is_bf16,
+                      void* stream) {
   if (is_bf16 || B < 1 || H < 1 || T_len < 1 || m < 1 || dh < 16 ||
-      dh > MAX_DH || dh % 16 != 0 || valid_len < 0 || valid_len > T_len)
+      dh > MAX_DH || dh % 16 != 0 || valid_len < 0 || valid_len > T_len ||
+      bad_cells(B, H, b_offset, h_offset, H_total))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = smem_bytes(dh, m);
@@ -432,7 +437,7 @@ int rel_attention_bwd(const void* q, const void* k, const void* v,
       static_cast<const float*>(dout), static_cast<float*>(dq),
       static_cast<float*>(dkp), static_cast<float*>(dvp),
       static_cast<float*>(dep), H, T_len, dh, m, valid_len, scale, seed,
-      drop_threshold, drop_scale);
+      drop_threshold, drop_scale, b_offset, h_offset, H_total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)B * H * T_len * dh + (size_t)H * (2 * m - 1) * dh;

@@ -9,7 +9,7 @@
 //
 // For one (b, h), with scale = 1/sqrt(d_h), P the softmax of the masked
 // scores and P' = P * keep * drop_scale (keep: the forward's counter hash
-// of (query, key, seed + b*H + h)):
+// of (query, key, cell), the cell of rel_attention.cuh):
 //
 //   dP = dO . V^T,  D = rowsum(P' (.) dP),  dS = P' (.) dP - P (.) D
 //   dR[q, r] = dS[q, q + r - (m-1)], 0 where that key lies outside [0, T)
@@ -88,7 +88,8 @@ scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ dout, bf16* __restrict__ pp,
               bf16* __restrict__ ds, bf16* __restrict__ dr, int H, int T,
               int dh, int m, int valid_len, float scale, unsigned seed,
-              unsigned drop_threshold, float drop_scale) {
+              unsigned drop_threshold, float drop_scale,
+              int b_offset, int h_offset, int H_total) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int Tp = round16(T);
   const int W = 2 * m - 1;
@@ -153,7 +154,8 @@ scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // D, dS and P' per row (one warp per row), then the row's P', dS and
   // dR into the scratch. The warp owns its row, so the unskew reads it
   // after a __syncwarp.
-  const unsigned cell_seed = seed + (unsigned)(b * H + h);
+  const unsigned cell_seed =
+      seed + (unsigned)((b_offset + b) * H_total + h_offset + h);
   const size_t row0 = ((size_t)b * H + h) * Tp;  // first scratch row
   for (int i = warp; i < QROWS; i += NWARPS) {
     const int qi = q0 + i;
@@ -473,9 +475,12 @@ int rel_attention_bwd_wmma_scores(const void* q, const void* k,
                                   void* dr, int B, int H, int T, int dh,
                                   int m, int valid_len, float scale,
                                   unsigned seed, unsigned drop_threshold,
-                                  float drop_scale, void* stream) {
+                                  float drop_scale,
+                                  int b_offset, int h_offset, int H_total,
+                                  void* stream) {
   // stage A keeps one keep bit per band cell of a lane in a 32-bit word
   if (bad_shape(B, H, T, dh, m) || valid_len < 0 || valid_len > T ||
+      relattn::bad_cells(B, H, b_offset, h_offset, H_total) ||
       band_cols(T, m) > 32 * 32)
     return (int)cudaErrorInvalidValue;
   const size_t smem = scores_smem(T, dh, m);
@@ -487,7 +492,7 @@ int rel_attention_bwd_wmma_scores(const void* q, const void* k,
       static_cast<const bf16*>(v), static_cast<const bf16*>(e),
       static_cast<const bf16*>(dout), static_cast<bf16*>(pp),
       static_cast<bf16*>(ds), static_cast<bf16*>(dr), H, T, dh, m, valid_len,
-      scale, seed, drop_threshold, drop_scale);
+      scale, seed, drop_threshold, drop_scale, b_offset, h_offset, H_total);
   return (int)cudaGetLastError();
 }
 

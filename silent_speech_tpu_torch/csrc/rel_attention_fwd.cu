@@ -10,7 +10,8 @@
 //   s[q,k] = (q.k) * scale + q . E_h[k - q + m - 1]
 //            when |k - q| <= m - 1 and (k < L) == (q < L), else -1e8
 //   P[q]   = softmax_k(s[q, :])                 (row max subtracted)
-//   P'     = P * keep / (1 - t / 2^32),  keep = hash(q, k, seed + b*H + h) >= t
+//   P'     = P * keep / (1 - t / 2^32),  keep = hash(q, k, cell) >= t
+//            (the cell of rel_attention.cuh)
 //   O[q]   = P'[q] . V
 //
 // L is the utterance's valid length inside a bucket-padded sequence (serving;
@@ -50,7 +51,8 @@ rel_attention_fwd_kernel(const float* __restrict__ q,
                          const float* __restrict__ e, float* __restrict__ o,
                          int H, int T_len, int dh, int m,
                          int valid_len, float scale, unsigned seed,
-                         unsigned drop_threshold, float drop_scale) {
+                         unsigned drop_threshold, float drop_scale,
+                         int b_offset, int h_offset, int H_total) {
   extern __shared__ float smem[];
   const Band g(dh, m);
   float* sQ = smem;              // BQ x ld
@@ -75,7 +77,8 @@ rel_attention_fwd_kernel(const float* __restrict__ q,
                g, q0, k_lo, k_hi, T_len, dh, m, valid_len, scale);
 
   if (drop_threshold != 0u) {
-    const unsigned cell_seed = seed + (unsigned)(b * H + h);
+    const unsigned cell_seed =
+        seed + (unsigned)((b_offset + b) * H_total + h_offset + h);
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     for (int i = warp; i < BQ; i += NWARPS) {
@@ -145,10 +148,13 @@ int rel_attention_fwd_smem_bytes(int dh, int m) {
 int rel_attention_fwd(const void* q, const void* k, const void* v,
                       const void* e, void* o, int B, int H, int T_len, int dh,
                       int m, int valid_len, float scale, unsigned seed,
-                      unsigned drop_threshold, float drop_scale, int is_bf16,
+                      unsigned drop_threshold, float drop_scale,
+                      int b_offset, int h_offset, int H_total,
+                      int is_bf16,
                       void* stream) {
   if (is_bf16 || B < 1 || H < 1 || T_len < 1 || m < 1 || dh < 16 ||
-      dh > MAX_DH || dh % 16 != 0 || valid_len < 0 || valid_len > T_len)
+      dh > MAX_DH || dh % 16 != 0 || valid_len < 0 || valid_len > T_len ||
+      bad_cells(B, H, b_offset, h_offset, H_total))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)smem_floats(dh, m);
   cudaError_t err = cudaFuncSetAttribute(
@@ -161,7 +167,7 @@ int rel_attention_fwd(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(e),
       static_cast<float*>(o), H, T_len, dh, m, valid_len, scale, seed,
-      drop_threshold, drop_scale);
+      drop_threshold, drop_scale, b_offset, h_offset, H_total);
   return (int)cudaGetLastError();
 }
 

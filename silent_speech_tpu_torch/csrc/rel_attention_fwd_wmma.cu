@@ -13,7 +13,7 @@
 //   P[q]   = softmax_k(s[q, :]),  P' = P * keep * drop_scale
 //   O[q]   = bf16(P'[q]) . V
 //
-// with keep = hash(q, k, seed + b*H + h) >= t (rel_attention.cuh), the
+// with keep = hash(q, k, cell) >= t (the cell of rel_attention.cuh), the
 // hash the JAX kernel runs off the TPU, so the mask equals the plain
 // version's and the JAX kernel's in interpret mode value for value. P' is
 // rounded to bf16 before the product with V, where the JAX kernel rounds
@@ -83,7 +83,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ e,
            bf16* __restrict__ o, int H, int T, int dh, int m, int valid_len,
            float scale, unsigned seed, unsigned drop_threshold,
-           float drop_scale) {
+           float drop_scale, int b_offset, int h_offset, int H_total) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int W = 2 * m - 1;
   const int Wp = round16(W);
@@ -151,7 +151,8 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();  // R is no longer read: P' takes its place
 
   // P' = P * keep * drop_scale, rounded to bf16; 0 from nb to ncp
-  const unsigned cell_seed = seed + (unsigned)(b * H + h);
+  const unsigned cell_seed =
+      seed + (unsigned)((b_offset + b) * H_total + h_offset + h);
   for (int i = warp; i < QROWS; i += NWARPS) {
     const int qi = q0 + i;
     const float* srow = sS + i * lds;
@@ -229,9 +230,12 @@ int rel_attention_fwd_wmma(const void* q, const void* k, const void* v,
                            const void* e, void* o, int B, int H, int T,
                            int dh, int m, int valid_len, float scale,
                            unsigned seed, unsigned drop_threshold,
-                           float drop_scale, void* stream) {
+                           float drop_scale,
+                           int b_offset, int h_offset, int H_total,
+                                  void* stream) {
   if (B < 1 || H < 1 || T < 1 || m < 1 || dh < 16 || dh > MAX_DH ||
-      dh % 16 != 0 || valid_len < 0 || valid_len > T)
+      dh % 16 != 0 || valid_len < 0 || valid_len > T ||
+      relattn::bad_cells(B, H, b_offset, h_offset, H_total))
     return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem(T, dh, m);
   cudaError_t err = cudaFuncSetAttribute(
@@ -242,7 +246,7 @@ int rel_attention_fwd_wmma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(e),
       static_cast<bf16*>(o), H, T, dh, m, valid_len, scale, seed,
-      drop_threshold, drop_scale);
+      drop_threshold, drop_scale, b_offset, h_offset, H_total);
   return (int)cudaGetLastError();
 }
 

@@ -106,10 +106,12 @@ class DeviceCorpus:
     @staticmethod
     def build(examples: Sequence[dict],
               device: Optional[Union[str, torch.device]] = None,
-              hbm_fraction: float = 0.4) -> "DeviceCorpus":
+              hbm_fraction: float = 0.4, mesh=None) -> "DeviceCorpus":
         """Flatten example dicts (the ``EMGDataset.__getitem__`` schema) on
-        the host, count their bytes against the budget, then upload once."""
-        device = resolve_device(device)
+        the host, count their bytes against the budget, then upload once.
+        On a ``mesh`` every rank holds the whole corpus on its device (JAX
+        replicates it), and each step's batch is split after assembly."""
+        device = mesh.device if mesh is not None else resolve_device(device)
         raw_parts, tgt_parts, phon_parts, text_parts = [], [], [], []
         feat_len, tgt_len, text_len, silent = [], [], [], []
         for e in examples:

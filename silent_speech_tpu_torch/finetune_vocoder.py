@@ -16,7 +16,9 @@ The generator starts from ``--hifigan_checkpoint`` (its sibling
 ``--vocoder_checkpoint_every`` steps and at the end; ``--resume`` continues
 from it with the step count and the learning-rate decay where they were)
 and ``generator_finetuned.pt`` into ``--output_directory``. It runs on the
-card unless ``--device cpu``.
+card unless ``--device cpu``. Under ``torchrun --nproc_per_node=N`` the
+GAN trains data-parallel over the N ranks (``--vocoder_batch_size`` must
+divide by the data axis); rank 0 alone writes files.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import os
 from typing import Optional, Sequence
 
 from .config import TransductionTrainConfig
-from .flags import _bool, _list, add_flag
+from .flags import _bool, _list, add_flag, add_mesh_flags, cli_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,6 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
          "output directory")
     flag("resume", False, "resume from the full GAN state in "
          "output_directory", _bool)
+    add_mesh_flags(flag)
     flag("device", "cuda", "torch device to train on (cuda or cpu)")
     return ap
 
@@ -60,14 +63,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from .train.vocoder import VocoderDataSource, VocoderTrainer
     from .utils.device import resolve_device
     from .utils.run_logging import (log_device_info, log_run_provenance,
-                                    setup_run_logging)
+                                    setup_rank_logging)
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)  # no card: raise before any work
     out_dir = args.output_directory
-    setup_run_logging(out_dir)
+    mesh = cli_mesh(args, device)
+    setup_rank_logging(out_dir, mesh)
     log_run_provenance()
-    log_device_info(device)
+    log_device_info(device if mesh is None else mesh.device)
 
     gen_cfg = HiFiGANConfig()
     if args.hifigan_checkpoint:
@@ -78,7 +82,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     trainer = VocoderTrainer(
         gen_cfg=gen_cfg,
         disc_periods=tuple(int(p) for p in args.vocoder_disc_periods),
-        device=device)
+        device=device, mesh=mesh)
     if args.hifigan_checkpoint:
         trainer.load_generator(args.hifigan_checkpoint)
 

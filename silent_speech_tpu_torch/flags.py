@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import argparse
 
-from .config import DataConfig
+from .config import DataConfig, MeshConfig
 
 
 def _bool(value: str) -> bool:
@@ -53,6 +53,26 @@ def add_data_flags(flag) -> None:
          "alignment file directory")
     flag("normalizers_file", d.normalizers_file,
          "pickled feature normalizers")
+
+
+def add_mesh_flags(flag) -> None:
+    """``--model_parallel``, the JAX CLIs' flag; the data axis takes the
+    rest of ``torchrun``'s ranks."""
+    flag("model_parallel", MeshConfig().model_parallel,
+         "size of the model (tensor-parallel) mesh axis")
+
+
+def cli_mesh(args, device):
+    """The CLI's mesh: under ``torchrun`` (``WORLD_SIZE`` set) or with
+    ``--model_parallel`` above 1, ``make_mesh(-1, model_parallel)`` on
+    ``device``'s kind; otherwise None, one process without collectives."""
+    import os
+
+    if "WORLD_SIZE" not in os.environ and args.model_parallel == 1:
+        return None
+    from .parallel.mesh import make_mesh
+
+    return make_mesh(-1, args.model_parallel, device)
 
 
 def data_config_from_args(args, **kw) -> DataConfig:

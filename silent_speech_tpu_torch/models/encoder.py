@@ -15,6 +15,20 @@ The train forward (``train=True``) follows the JAX module's
 (``running = 0.9·running + 0.1·batch``, the biased batch variance; torch's
 ``F.batch_norm`` would take the unbiased one), and the transformer's
 dropout. All randomness comes from the caller's CPU ``torch.Generator``.
+
+``shard(mesh)`` puts the model on a data × model mesh
+(``parallel/mesh.py``): each conv computes its model rank's output
+channels and BatchNorm acts on them, and the activations are all-gathered
+over ``model`` before the next conv (the gather's backward sums the
+ranks' partial gradients) and before ``w_raw_in`` (whose consumer is
+replicated: the backward keeps the rank's slice); the transformer splits
+as ``models/transformer.py`` says. The training forward then takes the
+data rank's chunk rows, and BatchNorm syncs its statistics over ``data``
+as flax's ``pmean`` does: the local means of x and x² are summed over the
+data group and divided by its size, then var = E[x²] − E[x]², clipped at
+0. The rows split evenly (the trainers round the chunk count up to the
+data axis), so these are the one-process statistics. The eval forward
+takes whole batches on every data rank.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
+from ..parallel.collectives import all_gather, all_reduce_sum
 from .transformer import TransformerEncoder, linear, xavier_normal_
 
 
@@ -39,16 +54,22 @@ def _conv(conv: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype
 BN_MOMENTUM = 0.9  # flax's momentum: the running statistics' decay
 
 
-def _bn(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool) -> torch.Tensor:
+def _bn(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool,
+        mesh=None) -> torch.Tensor:
     """BatchNorm over (B, L) of channels-first x, in float32. In training,
-    on the batch's statistics (var = E[x²] − E[x]², clipped at 0), and the
-    running statistics move toward them in place."""
+    on the batch's statistics (var = E[x²] − E[x]², clipped at 0, the
+    means synced over ``mesh``'s data axis), and the running statistics
+    move toward them in place."""
     x32 = x.float()
     if not train:
         return F.batch_norm(x32, bn.running_mean, bn.running_var,
                             bn.weight, bn.bias, False, 0.0, bn.eps)
     mean = x32.mean((0, 2))
-    var = ((x32 * x32).mean((0, 2)) - mean * mean).clamp_min(0.0)
+    mean_sq = (x32 * x32).mean((0, 2))
+    if mesh is not None:
+        mean, mean_sq = all_reduce_sum(torch.stack([mean, mean_sq]),
+                                       mesh.data_group) / mesh.data_parallel
+    var = (mean_sq - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         for running, batch in ((bn.running_mean, mean),
                                (bn.running_var, var)):
@@ -90,16 +111,21 @@ class ResBlock(nn.Module):
         if stride != 1 or in_channels != channels:
             self.residual_path = nn.Conv1d(in_channels, channels, 1, stride)
             self.res_norm = nn.BatchNorm1d(channels, eps=1e-5)
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """x (B, C, L) → (B, channels, L/stride), float32."""
-        cdt = self.compute_dtype
-        h = F.relu(_bn(self.bn1, _conv(self.conv1, x, cdt), train))
-        h = _bn(self.bn2, _conv(self.conv2, h, cdt), train)
+        """x (B, C, L) → (B, channels, L/stride), float32; on a mesh,
+        the model rank's channels of the output."""
+        cdt, mesh = self.compute_dtype, self.mesh
+        sync = mesh if train else None
+        h = F.relu(_bn(self.bn1, _conv(self.conv1, x, cdt), train, sync))
+        if mesh is not None:
+            h = all_gather(h, mesh.model_group, 1, "sum")
+        h = _bn(self.bn2, _conv(self.conv2, h, cdt), train, sync)
         res = x
         if self.residual_path is not None:
             res = _bn(self.res_norm, _conv(self.residual_path, x, cdt),
-                      train)
+                      train, sync)
         return F.relu(h + res)
 
 
@@ -128,6 +154,18 @@ class EMGEncoder(nn.Module):
         self.w_out = nn.Linear(d, num_outs)
         self.w_aux = (nn.Linear(d, num_aux_outs)
                       if num_aux_outs is not None else None)
+        self.mesh = None
+
+    def shard(self, mesh) -> "EMGEncoder":
+        """Keep this model rank's slice of each parameter and buffer
+        (``parallel/mesh.shard_module``) and run on ``mesh`` from now on."""
+        from ..parallel.mesh import shard_module
+
+        shard_module(self, mesh)
+        for mod in self.modules():
+            if hasattr(mod, "mesh"):
+                mod.mesh = mesh
+        return self
 
     def forward(self, x_raw: torch.Tensor, valid_len: Optional[int] = None,
                 *, train: bool = False,
@@ -138,8 +176,9 @@ class EMGEncoder(nn.Module):
         is the utterance's length in frames inside a padded T (default
         T); padding frames and utterance frames do not attend to each
         other. ``train=True`` is the training forward and needs a CPU
-        ``generator`` for its shift and dropout draws."""
-        cdt = self.compute_dtype
+        ``generator`` for its shift and dropout draws; on a mesh, its
+        ``x_raw`` is the data rank's share of the batch's rows."""
+        cdt, mesh = self.compute_dtype, self.mesh
         if train:
             if generator is None:
                 raise ValueError("the training forward needs a generator")
@@ -147,11 +186,18 @@ class EMGEncoder(nn.Module):
                 x_raw = shift_raw(x_raw, draw_shift(generator))
         else:
             generator = None
+        b_offset = 0
+        if mesh is not None and train:
+            b_offset = mesh.data_rank * x_raw.shape[0]
         h = x_raw.transpose(1, 2)
-        for block in self.conv_blocks:
+        for i, block in enumerate(self.conv_blocks):
             h = block(h, train)
+            if mesh is not None:
+                last = i == len(self.conv_blocks) - 1
+                h = all_gather(h, mesh.model_group, 1,
+                               "slice" if last else "sum")
         h = linear(self.w_raw_in, h.transpose(1, 2), cdt)
-        h = self.transformer(h, valid_len, generator)
+        h = self.transformer(h, valid_len, generator, b_offset)
         out = linear(self.w_out, h, cdt).float()
         if self.w_aux is None:
             return out

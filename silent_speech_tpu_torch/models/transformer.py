@@ -13,6 +13,18 @@ residual branches of ``norm1`` and ``norm2`` and the FFN's ReLU output
 (uint8 threshold, ``ops/dropout.py``). Every site draws its own seed per
 step from the caller's CPU ``torch.Generator``, so drawing never waits for
 the card.
+
+On a mesh (``parallel/mesh.py``, set by ``EMGEncoder.shard``) a layer holds
+its model rank's heads (``w_q``, ``w_k``, ``w_v``, ``w_o`` and the relative
+table sliced by head) and FFN columns (``linear1`` with its bias,
+``linear2``'s input rows), Megatron's split: the input of each block goes
+through *f* (``collectives.copy_to``), the attention output after ``w_o``
+and the FFN output after ``linear2`` through *g* (``reduce_from``), and
+``linear2.bias`` is added once, after the reduce. Norms are replicated.
+Every dropout draws the slice of the one-process mask: the attention
+kernels take the shard's first row, first head and the head count of the
+whole, the FFN's and residuals' masks their place in the one-process
+tensor (``ops/dropout.Shard``).
 """
 
 from __future__ import annotations
@@ -24,9 +36,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dropout import dropout_threshold, relu_dropout
+from ..ops.dropout import Shard, dropout_threshold, relu_dropout
 from ..ops.fused_norm import FusedResidualNorm
 from ..ops.rel_attention import attention_drop_threshold, rel_attention
+from ..parallel.collectives import copy_to, reduce_from
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -68,24 +81,39 @@ class RelativePositionalAttention(nn.Module):
         self.w_o = nn.Parameter(torch.empty(n_head, d_head, d_model))
         self.relative_positional = LearnedRelativePositionalEmbedding(
             n_head, max_dist, d_head)
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                b_offset: int = 0) -> torch.Tensor:
         """x (B, T, D) → (B, T, D); ``valid_len`` masks the padding
         beyond the utterance out of attention; a ``generator`` (training)
-        turns the probability dropout on."""
+        turns the probability dropout on; ``b_offset`` is the first row's
+        index in the one-process batch."""
         cdt = self.compute_dtype
-        xc = x.to(cdt)
-        q, k, v = (torch.einsum("btd,hda->bhta", xc, w.to(cdt)).contiguous()
-                   for w in (self.w_q, self.w_k, self.w_v))
+        mesh = self.mesh
+        cells = {}
+        if mesh is not None:
+            x = copy_to(x, mesh.model_group)
+            n_head = self.w_q.shape[0]
+            cells = dict(b_offset=b_offset,
+                         h_offset=mesh.model_rank * n_head,
+                         h_total=mesh.model_parallel * n_head)
+        # one product for q, k and v: x then has one consumer here, so its
+        # gradient sums the same terms in the same order on a mesh (behind
+        # *f*) as without one
+        w = torch.stack([self.w_q, self.w_k, self.w_v]).to(cdt)
+        q, k, v = (t.contiguous() for t in torch.einsum(
+            "btd,shda->sbhta", x.to(cdt), w))
         rel_emb = self.relative_positional.embeddings[..., 0].to(cdt)
         seed, thresh = 0, 0
         if generator is not None and self.drop_threshold:
             seed, thresh = draw_seed(generator), self.drop_threshold
         o = rel_attention(q, k, v, rel_emb.contiguous(), self.max_dist,
-                          valid_len, seed, thresh)
+                          valid_len, seed, thresh, **cells)
         out = torch.einsum("bhta,haf->btf", o, self.w_o.to(cdt))
+        if mesh is not None:
+            out = reduce_from(out, mesh.model_group)
         return out.to(x.dtype)
 
 
@@ -105,18 +133,33 @@ class TransformerEncoderLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = FusedResidualNorm(d_model)
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                b_offset: int = 0) -> torch.Tensor:
         cdt = self.compute_dtype
+        mesh = self.mesh
         t = self.drop_threshold if generator is not None else 0
         seeds = [draw_seed(generator) if t else 0 for _ in range(3)]
-        x = self.norm1(x, self.self_attn(x, valid_len, generator), cdt,
-                       seeds[0], t)
-        h = relu_dropout(linear(self.linear1, x, cdt), seeds[1], t)
-        h = linear(self.linear2, h, cdt)
-        return self.norm2(x, h, cdt, seeds[2], t)
+        rows = ffn = None
+        if mesh is not None:
+            n_cols = self.linear1.weight.shape[0]
+            rows = Shard(b_offset * x.shape[1])
+            ffn = Shard(rows.row0, mesh.model_rank * n_cols,
+                        mesh.model_parallel * n_cols)
+        x = self.norm1(x, self.self_attn(x, valid_len, generator, b_offset),
+                       cdt, seeds[0], t, rows)
+        xf = x if mesh is None else copy_to(x, mesh.model_group)
+        h = relu_dropout(linear(self.linear1, xf, cdt), seeds[1], t, ffn)
+        if mesh is None:
+            h = linear(self.linear2, h, cdt)
+        elif mesh.model_parallel == 1:
+            h = reduce_from(linear(self.linear2, h, cdt), mesh.model_group)
+        else:   # the bias once, after the partial sums are reduced
+            h = reduce_from(F.linear(h.to(cdt), self.linear2.weight.to(cdt)),
+                            mesh.model_group) + self.linear2.bias.to(cdt)
+        return self.norm2(x, h, cdt, seeds[2], t, rows)
 
 
 class TransformerEncoder(nn.Module):
@@ -127,10 +170,10 @@ class TransformerEncoder(nn.Module):
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                b_offset: int = 0) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, valid_len, generator)
+            x = layer(x, valid_len, generator, b_offset)
         return x
 
 

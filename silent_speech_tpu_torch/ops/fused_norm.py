@@ -15,7 +15,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .dropout import regen_dropout
+from typing import Optional
+
+from .dropout import Shard, regen_dropout
 
 
 class _ResidualLN(torch.autograd.Function):
@@ -45,12 +47,13 @@ class _ResidualLN(torch.autograd.Function):
 
 def residual_dropout_ln(x: torch.Tensor, h: torch.Tensor, seed: int,
                         threshold: int, gamma: torch.Tensor,
-                        beta: torch.Tensor, eps: float = 1e-6
-                        ) -> torch.Tensor:
+                        beta: torch.Tensor, eps: float = 1e-6,
+                        shard: Optional[Shard] = None) -> torch.Tensor:
     """``LN(x + dropout(h))`` over the last axis, in the dtype of ``x``;
-    ``threshold`` is the uint8 dropout threshold (0 = no dropout)."""
-    return _ResidualLN.apply(x, regen_dropout(h, seed, threshold), gamma,
-                             beta, eps)
+    ``threshold`` is the uint8 dropout threshold (0 = no dropout);
+    ``shard`` places ``h`` in the one-process tensor (``ops/dropout``)."""
+    return _ResidualLN.apply(x, regen_dropout(h, seed, threshold, shard),
+                             gamma, beta, eps)
 
 
 class FusedResidualNorm(nn.Module):
@@ -64,7 +67,8 @@ class FusedResidualNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d))
 
     def forward(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype,
-                seed: int = 0, threshold: int = 0) -> torch.Tensor:
+                seed: int = 0, threshold: int = 0,
+                shard: Optional[Shard] = None) -> torch.Tensor:
         return residual_dropout_ln(x.to(dtype), h.to(dtype), seed,
                                    threshold, self.weight, self.bias,
-                                   self.eps).to(x.dtype)
+                                   self.eps, shard).to(x.dtype)

@@ -14,7 +14,11 @@ ids. For query q and key k of one (batch b, head h)::
 with ``keep[q, k] = hash_bits(q, k, seed + b·H + h) ≥ t`` for a uint32
 threshold t (0 = no dropout): the counter hash that the JAX kernel runs
 off the TPU (``_hash_bits``), so the kernels, the plain version and the
-JAX kernel in interpret mode draw the same mask.
+JAX kernel in interpret mode draw the same mask. A call on a shard of the
+batch's rows or heads (``parallel/``) names the shard's place in the
+whole: ``b_offset``, ``h_offset`` and ``h_total`` make the cell ``seed +
+(b_offset + b)·h_total + h_offset + h``, so the shard draws its slice of
+the unsharded mask; the defaults (0, 0, H) are the unsharded call.
 
 ``rel_attention`` launches, for CUDA tensors, one forward kernel (K1f)
 inside an autograd function whose backward (K1b) recomputes P, so nothing
@@ -60,17 +64,24 @@ def _keep_scale(drop_threshold: int) -> float:
 
 
 def attention_keep(b: int, h: int, t: int, seed: int, drop_threshold: int,
-                   device) -> torch.Tensor:
-    """(B, H, T, T) keep mask of the attention-probability dropout."""
+                   device, b_offset: int = 0, h_offset: int = 0,
+                   h_total: Optional[int] = None) -> torch.Tensor:
+    """(B, H, T, T) keep mask of the attention-probability dropout, for
+    rows ``b_offset``.. and heads ``h_offset``.. of a batch with
+    ``h_total`` heads (default H)."""
+    h_total = h if h_total is None else h_total
     pos = torch.arange(t, device=device)
-    cell = (seed + torch.arange(b * h, device=device).reshape(b, h)) & M32
+    rows = torch.arange(b_offset, b_offset + b, device=device)
+    heads = torch.arange(h_offset, h_offset + h, device=device)
+    cell = (seed + rows[:, None] * h_total + heads[None, :]) & M32
     bits = hash_bits(pos[:, None], pos[None, :], cell[:, :, None, None])
     return bits >= drop_threshold
 
 
-def _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold):
+def _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold,
+           cells=(0, 0, None)):
     """P (the softmax of the masked scores) and P' (after the dropout), in
-    float32, (B, H, T, T)."""
+    float32, (B, H, T, T); ``cells`` is (b_offset, h_offset, h_total)."""
     b, h, t, dh = q.shape
     m = max_dist
     qf, kf, ef = (x.float() for x in (q, k, rel_emb))
@@ -86,7 +97,7 @@ def _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold):
     p = torch.softmax(s, dim=-1)
     if not drop_threshold:
         return p, p
-    keep = attention_keep(b, h, t, seed, drop_threshold, q.device)
+    keep = attention_keep(b, h, t, seed, drop_threshold, q.device, *cells)
     return p, torch.where(keep, p * _keep_scale(drop_threshold), 0.0)
 
 
@@ -94,13 +105,15 @@ def rel_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         rel_emb: torch.Tensor, max_dist: int,
                         valid_len: Optional[int] = None, seed: int = 0,
                         drop_threshold: int = 0,
-                        store_dtype: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
+                        store_dtype: Optional[torch.dtype] = None,
+                        b_offset: int = 0, h_offset: int = 0,
+                        h_total: Optional[int] = None) -> torch.Tensor:
     """The same function in plain PyTorch, computed in float32 and returned
     in the input dtype. Materializes the (B, H, T, T) scores. With
     ``store_dtype``, P' is rounded to it before ·V, as the bf16 kernel
     (``csrc/rel_attention_fwd_wmma.cu``) and the JAX kernel round it."""
-    _, p = _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold)
+    _, p = _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold,
+                  (b_offset, h_offset, h_total))
     if store_dtype is not None:
         p = p.to(store_dtype).float()
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
@@ -123,7 +136,9 @@ def rel_attention_bwd_staged_plain(q, k, v, rel_emb, dout, max_dist: int,
                                    valid_len: Optional[int] = None,
                                    seed: int = 0, drop_threshold: int = 0,
                                    store_dtype: Optional[torch.dtype] = None,
-                                   return_scratch: bool = False):
+                                   return_scratch: bool = False,
+                                   b_offset: int = 0, h_offset: int = 0,
+                                   h_total: Optional[int] = None):
     """The bf16 backward's four stages (``csrc/rel_attention_bwd_wmma.cu``)
     in plain PyTorch, computed in float32: stage A's P', dS and dR, then
     dK, dV (B), dQ (C) and dE (D) from them. With ``store_dtype``, P', dS
@@ -133,7 +148,8 @@ def rel_attention_bwd_staged_plain(q, k, v, rel_emb, dout, max_dist: int,
     dh = q.shape[-1]
     scale = 1.0 / math.sqrt(dh)
     qf, kf, vf, ef, gf = (x.float() for x in (q, k, v, rel_emb, dout))
-    p, pp = _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold)
+    p, pp = _probs(q, k, rel_emb, max_dist, valid_len, seed, drop_threshold,
+                   (b_offset, h_offset, h_total))
     prod = pp * torch.einsum("bhqd,bhkd->bhqk", gf, vf)     # P' ⊙ dP
     ds = prod - p * prod.sum(-1, keepdim=True)
     if store_dtype is not None:
@@ -149,8 +165,9 @@ def rel_attention_bwd_staged_plain(q, k, v, rel_emb, dout, max_dist: int,
     return (grads, (pp, ds, dr)) if return_scratch else grads
 
 
-def _check(q, k, v, rel_emb, max_dist, valid_len, seed,
-           drop_threshold) -> int:
+def _check(q, k, v, rel_emb, max_dist, valid_len, seed, drop_threshold,
+           b_offset=0, h_offset=0, h_total=None):
+    """The checked (valid_len, (b_offset, h_offset, h_total)) of a call."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, T, d_head), got {tuple(q.shape)}")
     if k.shape != q.shape or v.shape != q.shape:
@@ -171,7 +188,13 @@ def _check(q, k, v, rel_emb, max_dist, valid_len, seed,
     if not 0 <= seed <= M32 or not 0 <= drop_threshold <= M32:
         raise ValueError(f"seed {seed} and drop_threshold {drop_threshold} "
                          f"must be uint32 values")
-    return valid_len
+    b = q.shape[0]
+    h_total = h if h_total is None else int(h_total)
+    if (b_offset < 0 or h_offset < 0 or h_offset + h > h_total
+            or (b_offset + b) * h_total > 2 ** 31 - 1):
+        raise ValueError(f"rows {b_offset}+{b} and heads {h_offset}+{h} "
+                         f"do not fit in a batch of {h_total} heads")
+    return valid_len, (int(b_offset), int(h_offset), h_total)
 
 
 def _check_kernel_input(tensors, dtype) -> None:
@@ -195,7 +218,7 @@ def _raise_launch_error(name, lib, err, smem_bytes) -> None:
 
 
 def _launch_fwd(q, k, v, rel_emb, max_dist, valid_len, seed,
-                drop_threshold) -> torch.Tensor:
+                drop_threshold, cells) -> torch.Tensor:
     """One forward launch: bf16 on the WMMA kernel, f32 on the f32 one."""
     _check_kernel_input({"q": q, "k": k, "v": v, "rel_emb": rel_emb},
                         q.dtype)
@@ -207,7 +230,7 @@ def _launch_fwd(q, k, v, rel_emb, max_dist, valid_len, seed,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_emb.data_ptr(),
             out.data_ptr(), b, h, t, dh, max_dist, valid_len,
             1.0 / math.sqrt(dh), seed, drop_threshold,
-            _keep_scale(drop_threshold))
+            _keep_scale(drop_threshold), *cells)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if bf16:
@@ -225,7 +248,9 @@ def _launch_fwd(q, k, v, rel_emb, max_dist, valid_len, seed,
 def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       rel_emb: torch.Tensor, dout: torch.Tensor,
                       max_dist: int, valid_len: Optional[int] = None,
-                      seed: int = 0, drop_threshold: int = 0):
+                      seed: int = 0, drop_threshold: int = 0,
+                      b_offset: int = 0, h_offset: int = 0,
+                      h_total: Optional[int] = None):
     """Gradients (dQ, dK, dV, dE) of ``rel_attention``'s output against
     ``dout`` (CUDA tensors only), in the input dtype.
 
@@ -235,8 +260,8 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per-query-tile f32 partials of dK, dV and dE (summed over the batch),
     and a second sums them in a fixed order. Both routes are bit-equal
     from call to call. A launch that fails raises."""
-    valid_len = _check(q, k, v, rel_emb, max_dist, valid_len, seed,
-                       drop_threshold)
+    valid_len, cells = _check(q, k, v, rel_emb, max_dist, valid_len, seed,
+                              drop_threshold, b_offset, h_offset, h_total)
     if q.device.type != "cuda":
         raise ValueError(f"rel_attention_bwd runs on CUDA tensors, not "
                          f"{q.device}")
@@ -247,7 +272,8 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "dout": dout}, q.dtype)
     if q.dtype == torch.bfloat16:
         grads, stages, _ = _staged_bwd(q, k, v, rel_emb, dout, max_dist,
-                                       valid_len, seed, drop_threshold)
+                                       valid_len, seed, drop_threshold,
+                                       cells)
         for _, launch in stages:
             launch()
         rel_attention_bwd.launches += 1
@@ -267,7 +293,7 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *(x.data_ptr() for x in (q, k, v, rel_emb, dout, dq, dk, dv, de,
                                      dkp, dvp, dep)),
             *dims, valid_len, 1.0 / math.sqrt(dh), seed, drop_threshold,
-            _keep_scale(drop_threshold), 0, stream)
+            _keep_scale(drop_threshold), *cells, 0, stream)
     if err != 0:
         _raise_launch_error("rel_attention_bwd", lib, err,
                             lib.rel_attention_bwd_smem_bytes(dh, max_dist))
@@ -285,7 +311,7 @@ def _round16(x: int) -> int:
 
 
 def _staged_bwd(q, k, v, rel_emb, dout, max_dist, valid_len, seed,
-                drop_threshold):
+                drop_threshold, cells=(0, 0, None)):
     """Outputs, scratch and the stage launches of the bf16 backward, not
     yet launched: ``(grads, [(stage name, launch), ...], (P', dS, dR))``.
     Each launch runs on the current stream and raises if its C function
@@ -293,6 +319,8 @@ def _staged_bwd(q, k, v, rel_emb, dout, max_dist, valid_len, seed,
     rounded up to 16; dE's partials take one group of batch rows per
     slice of CTAs that fills the card about twice at three CTAs per SM."""
     b, h, t, dh = q.shape
+    if cells[2] is None:
+        cells = (cells[0], cells[1], h)
     tp, wp = _round16(t), _round16(2 * max_dist - 1)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     groups = min(b, -(-6 * sms // (h * -(-wp // 64))))
@@ -309,7 +337,8 @@ def _staged_bwd(q, k, v, rel_emb, dout, max_dist, valid_len, seed,
     # the tensors themselves, so that each stays alive while a launch uses it
     args = {
         "scores": (q, k, v, rel_emb, dout, pp, ds, dr, *dims, valid_len,
-                   scale, seed, drop_threshold, _keep_scale(drop_threshold)),
+                   scale, seed, drop_threshold, _keep_scale(drop_threshold),
+                   *cells),
         "dkdv": (q, dout, pp, ds, dk, dv, *dims, scale),
         "dq": (k, rel_emb, ds, dr, dq, *dims, scale),
         "de": (q, dr, part, de, *dims, groups),
@@ -340,39 +369,42 @@ class _RelAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, rel_emb, max_dist, valid_len, seed,
-                drop_threshold):
+                drop_threshold, cells):
         ctx.save_for_backward(q, k, v, rel_emb)
-        ctx.args = (max_dist, valid_len, seed, drop_threshold)
+        ctx.args = (max_dist, valid_len, seed, drop_threshold, *cells)
         return _launch_fwd(q, k, v, rel_emb, max_dist, valid_len, seed,
-                           drop_threshold)
+                           drop_threshold, cells)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, rel_emb = ctx.saved_tensors
         grads = rel_attention_bwd(q, k, v, rel_emb, dout.contiguous(),
                                   *ctx.args)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   rel_emb: torch.Tensor, max_dist: int,
                   valid_len: Optional[int] = None, seed: int = 0,
-                  drop_threshold: int = 0) -> torch.Tensor:
+                  drop_threshold: int = 0, b_offset: int = 0,
+                  h_offset: int = 0, h_total: Optional[int] = None
+                  ) -> torch.Tensor:
     """Relative-position attention, differentiable. q, k, v: (B, H, T,
     d_head); rel_emb: (H, 2·max_dist−1, d_head); ``valid_len`` L (default
     T) splits each sequence into the utterance and its padding, which do
     not see each other; ``seed`` and the uint32 ``drop_threshold`` set the
-    probability dropout (0 = off). Returns (B, H, T, d_head) in the input
-    dtype."""
-    valid_len = _check(q, k, v, rel_emb, max_dist, valid_len, seed,
-                       drop_threshold)
+    probability dropout (0 = off); ``b_offset``, ``h_offset`` and
+    ``h_total`` place a shard's rows and heads in the whole batch's
+    dropout cells. Returns (B, H, T, d_head) in the input dtype."""
+    valid_len, cells = _check(q, k, v, rel_emb, max_dist, valid_len, seed,
+                              drop_threshold, b_offset, h_offset, h_total)
     if q.device.type == "cpu":
         return rel_attention_plain(q, k, v, rel_emb, max_dist, valid_len,
-                                   seed, drop_threshold)
+                                   seed, drop_threshold, None, *cells)
     if q.device.type != "cuda":
         raise ValueError(f"no rel_attention for device {q.device}")
     return _RelAttention.apply(q, k, v, rel_emb, max_dist, valid_len, seed,
-                               drop_threshold)
+                               drop_threshold, cells)
 
 
 rel_attention.launches = 0  # forward kernel launches since the last reset
@@ -384,7 +416,8 @@ def _library(name: str) -> ctypes.CDLL:
     ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     f32 = ctypes.c_float
     dims = [i32] * 5                                      # B, H, T, dh, m
-    drop = [i32, f32, u32, u32, f32]    # valid_len, scale, seed, t, 1/keep
+    # valid_len, scale, seed, t, 1/keep, b_offset, h_offset, H_total
+    drop = [i32, f32, u32, u32, f32, i32, i32, i32]
     if name == "rel_attention_fwd":
         argtypes = {name: [ptr] * 5 + dims + drop + [i32, ptr]}
         smem_args = [i32, i32]

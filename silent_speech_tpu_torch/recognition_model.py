@@ -15,6 +15,8 @@ It trains with gradient accumulation of 2, warmup and milestone decay,
 reports the beam-decoded validation WER each epoch, and writes ``log.txt``,
 ``checkpoint.pt`` (the full train state, which ``--resume`` continues
 from) and the reference-layout ``model.pt`` into ``--output_directory``.
+Under ``torchrun --nproc_per_node=N`` it trains on a data × model mesh
+(``--model_parallel M``), rank 0 alone writing files.
 ``--evaluate_saved PATH`` prints the test set's WER for a ``model.pt``, or
 for the checkpoint in a directory. It runs on the card unless ``--device
 cpu`` (or ``--debug``, which the reference uses to force the CPU).
@@ -29,7 +31,8 @@ import os
 from typing import Optional, Sequence
 
 from .config import DataConfig, ModelConfig, RecognitionTrainConfig
-from .flags import _bool, add_data_flags, add_flag, data_config_from_args
+from .flags import (_bool, add_data_flags, add_flag, add_mesh_flags, cli_mesh,
+                    data_config_from_args)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,6 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     flag("lm_alpha", r.lm_alpha, "LM weight")
     flag("lm_beta", r.lm_beta, "word insertion bonus")
     # the port's own
+    add_mesh_flags(flag)
     flag("device", "cuda", "torch device (cuda or cpu)")
     return ap
 
@@ -128,20 +132,22 @@ def main(argv: Optional[Sequence[str]] = None):
     from .train.recognition import RecognitionTrainer
     from .utils.device import resolve_device
     from .utils.run_logging import (log_device_info, log_run_provenance,
-                                    setup_run_logging)
+                                    setup_rank_logging)
 
     args = build_parser().parse_args(argv)
     # no card: raise before any work
     device = resolve_device("cpu" if args.debug else args.device)
     model_cfg, data_cfg, train_cfg = configs_from_args(args)
+    mesh = None if args.evaluate_saved is not None else cli_mesh(args,
+                                                                 device)
     trainer = RecognitionTrainer(model_cfg, data_cfg, train_cfg,
-                                 device=device)
+                                 device=device, mesh=mesh)
     if args.evaluate_saved is not None:
         score = evaluate_saved(trainer, data_cfg, args.evaluate_saved)
         print("WER:", score)
         return score
 
-    setup_run_logging(train_cfg.output_directory)
+    setup_rank_logging(train_cfg.output_directory, mesh)
     log_run_provenance()
     trainset = EMGDataset(data_cfg, dev=False, test=False)
     devset = EMGDataset(data_cfg, dev=True)

@@ -25,6 +25,12 @@ attention mask: the attention kernel takes one length a launch. Conv and
 eval-mode BatchNorm act per row, so each row equals the JAX batched row,
 the padding's effect on the last frames included.
 
+On a data × model mesh (``mesh=``) a micro-step runs as the transduction
+trainer's does: the forward on the data rank's chunk rows, the logits
+gathered over ``data``, the whole CTC loss on every rank; the gradient is
+summed over ``data`` once an update, on the accumulated mean. The chunk
+and utterance buckets are rounded up to the data axis.
+
 The JAX trainer's wave and scan steps amortize the dispatch to a remote
 TPU; the port's steps queue on the card without them, as the transduction
 trainer's do, so they have no counterpart here. Randomness comes from
@@ -52,6 +58,8 @@ from ..eval.decode import (beam_ctc_decode, greedy_ctc_decode,
                            native_beam_usable)
 from ..models.encoder import EMGEncoder
 from ..text import TextTransform, wer
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import data_sync
 from ..utils.device import deterministic_cudnn, resolve_device
 from .checkpoint import (checkpoint_exists, export_reference_checkpoint,
                          restore_checkpoint, save_checkpoint)
@@ -70,11 +78,14 @@ class RecognitionTrainer:
     def __init__(self, model_cfg: Optional[ModelConfig] = None,
                  data_cfg: Optional[DataConfig] = None,
                  train_cfg: Optional[RecognitionTrainConfig] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         self.model_cfg = model_cfg or ModelConfig()
         self.data_cfg = data_cfg or DataConfig()
         self.train_cfg = train_cfg or RecognitionTrainConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.text_transform = TextTransform()
         # blank = the index after the last character
         # (reference recognition_model.py:33)
@@ -96,11 +107,14 @@ class RecognitionTrainer:
             model.load_state_dict(torch.load(
                 self.train_cfg.start_training_from, map_location="cpu",
                 weights_only=True), strict=False)
+        if self.mesh is not None:
+            model.shard(self.mesh)
         self.model = model.to(self.device)
         self.optimizer = FusedAdamW(
             self.model.parameters(), weight_decay=self.train_cfg.l2,
             moment_dtype=getattr(torch, self.train_cfg.moment_dtype),
-            grad_accum=self.train_cfg.grad_accum)
+            grad_accum=self.train_cfg.grad_accum,
+            grad_sync=None if self.mesh is None else data_sync(self.mesh))
         self.generator = torch.Generator().manual_seed(seed + 1)
         return self.model
 
@@ -112,19 +126,28 @@ class RecognitionTrainer:
         d = self.data_cfg
         frames_cap = int(self.train_cfg.max_batch_len * (516.79 / 1000.0)
                          / 6.0)
-        return dict(n_chunks=_round_up(-(-frames_cap // d.seq_len) + 2,
-                                       d.chunk_bucket),
+        cb = _round_up(d.chunk_bucket, self.data_parallel)
+        return dict(n_chunks=_round_up(-(-frames_cap // d.seq_len) + 2, cb),
                     seq_len=d.seq_len, t_cap=d.t_cap, text_cap=TEXT_CAP)
 
+    @property
+    def data_parallel(self) -> int:
+        return 1 if self.mesh is None else self.mesh.data_parallel
+
+    @property
+    def utt_cap(self) -> int:
+        return _round_up(self.data_cfg.utt_cap, self.data_parallel)
+
     def _pack(self, examples: List[dict]) -> PackedBatch:
-        d = self.data_cfg
+        d, dp = self.data_cfg, self.data_parallel
         fixed_chunks = fixed_utts = fixed_t = None
         if d.fixed_shapes:
             fixed_t = d.t_cap
-            fixed_utts = d.utt_cap
+            fixed_utts = self.utt_cap
             fixed_chunks = self._cache_caps()["n_chunks"]
         return pack_batch(examples, seq_len=d.seq_len,
-                          chunk_bucket=d.chunk_bucket, utt_bucket=8,
+                          chunk_bucket=_round_up(d.chunk_bucket, dp),
+                          utt_bucket=_round_up(8, dp),
                           with_audio=False, fixed_chunks=fixed_chunks,
                           fixed_utts=fixed_utts, fixed_t=fixed_t)
 
@@ -132,7 +155,7 @@ class RecognitionTrainer:
         """True when a batch fits the caps of on-device assembly."""
         caps, ids = self._cache_caps(), list(ids)
         return not (
-            len(ids) > self.data_cfg.utt_cap
+            len(ids) > self.utt_cap
             or int(corpus.feat_len_host[ids].sum())
             > caps["n_chunks"] * caps["seq_len"]
             or int(corpus.feat_len_host[ids].max(initial=0)) > caps["t_cap"]
@@ -149,8 +172,13 @@ class RecognitionTrainer:
         for p in self.model.parameters():
             p.grad = None
         with deterministic_cudnn():
-            logits = self.model(db.raw_emg, train=True,
-                                generator=self.generator)
+            raw = db.raw_emg
+            if self.mesh is not None:
+                first, count = self.mesh.rows(raw.shape[0])
+                raw = raw[first: first + count]
+            logits = self.model(raw, train=True, generator=self.generator)
+            if self.mesh is not None:
+                logits = all_gather(logits, self.mesh.data_group, 0, "slice")
             loss = ctc_loss(torch.log_softmax(logits, dim=-1), db,
                             self.blank_id)
             loss.backward()
@@ -171,7 +199,7 @@ class RecognitionTrainer:
         caps; the caller then packs it on the host."""
         if not self._cache_fits(corpus, ids):
             return None
-        caps, u_cap = self._cache_caps(), self.data_cfg.utt_cap
+        caps, u_cap = self._cache_caps(), self.utt_cap
         ids = corpus.order_silent_first(ids)
         utt_ids = torch.zeros(u_cap, dtype=torch.int64)
         utt_ids[: len(ids)] = torch.as_tensor(ids, dtype=torch.int64)

@@ -21,11 +21,16 @@ the group) kept on the parameters' device; the k-th updates the weights
 from the mean at that micro-step's learning rate, advances the Adam count
 and zeroes the mean; the others leave the weights, moments and count as
 they are.
+
+On a mesh, ``grad_sync`` turns the rank's gradients into the mesh's
+(``train/transduction.py``: summed over the data axis) in place, just
+before an update reads them: once a step, or once an accumulation group,
+on the mean of its micro-steps.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -36,8 +41,11 @@ class FusedAdamW:
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0,
                  moment_dtype: torch.dtype = torch.bfloat16,
-                 grad_accum: int = 1):
+                 grad_accum: int = 1,
+                 grad_sync: Optional[Callable[[List[torch.Tensor]], None]]
+                 = None):
         self.params = list(params)
+        self.grad_sync = grad_sync
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.moment_dtype = moment_dtype
@@ -74,6 +82,8 @@ class FusedAdamW:
             grads = self.acc
         else:
             grads = self._grads()
+        if self.grad_sync is not None:
+            self.grad_sync(grads)
         self.count += 1
         c = np.float32(self.count)
         bc1 = float(np.float32(1) - np.float32(self.b1) ** c)

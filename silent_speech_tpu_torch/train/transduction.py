@@ -15,6 +15,18 @@ utterance's prediction onto its voiced target through the DTW kernel.
 Randomness (weights, shift, dropout seeds) comes from explicit CPU
 ``torch.Generator``s. It runs on ``cuda`` unless given ``device="cpu"``.
 
+On a data × model mesh (``mesh=``, ``parallel/mesh.py``) each rank holds
+its model rank's shard of the weights and moments; a step assembles the
+whole batch on every rank (same ids, shift and dropout seeds from the
+same generator), runs the training forward on the data rank's chunk
+rows, gathers the predictions and phone logits over ``data`` (a gather
+whose backward keeps the rank's slice) and computes the whole loss on
+every rank, so utterances that cross a rank's chunk boundary need
+nothing more; the gradients are summed over ``data`` once a step before
+the update. The chunk and utterance buckets are rounded up to the data
+axis, as JAX rounds them. Rank 0 alone writes ``log.txt`` lines and
+files.
+
 The JAX trainer's wave and scan steps amortize the dispatch to a remote
 TPU and have no counterpart here.
 """
@@ -39,9 +51,11 @@ from ..data.sampler import SizeAwareSampler
 from ..models.encoder import EMGEncoder
 from ..ops.dtw import dtw_align_batch
 from ..phonemes import NUM_PHONES
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import data_sync
 from ..utils.device import deterministic_cudnn, resolve_device
 from .checkpoint import (checkpoint_exists, export_reference_checkpoint,
-                         restore_checkpoint, save_checkpoint)
+                         is_writer, restore_checkpoint, save_checkpoint)
 from .losses import TransductionLossOut, transduction_loss
 from .schedule import ReduceLROnPlateau, warmup_lr
 from .state import FusedAdamW
@@ -62,11 +76,14 @@ class TransductionTrainer:
                  data_cfg: Optional[DataConfig] = None,
                  train_cfg: Optional[TransductionTrainConfig] = None,
                  num_mel_bins: int = 80,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         self.model_cfg = model_cfg or ModelConfig()
         self.data_cfg = data_cfg or DataConfig()
         self.train_cfg = train_cfg or TransductionTrainConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.dtype = getattr(torch, self.model_cfg.compute_dtype)
         self.num_mel_bins = num_mel_bins
         self.model: Optional[EMGEncoder] = None
@@ -85,10 +102,13 @@ class TransductionTrainer:
             model.load_state_dict(torch.load(
                 self.train_cfg.start_training_from, map_location="cpu",
                 weights_only=True), strict=False)
+        if self.mesh is not None:
+            model.shard(self.mesh)
         self.model = model.to(self.device)
         self.optimizer = FusedAdamW(
             self.model.parameters(), weight_decay=self.train_cfg.l2,
-            moment_dtype=getattr(torch, self.train_cfg.moment_dtype))
+            moment_dtype=getattr(torch, self.train_cfg.moment_dtype),
+            grad_sync=None if self.mesh is None else data_sync(self.mesh))
         self.generator = torch.Generator().manual_seed(seed + 1)
         return self.model
 
@@ -99,15 +119,24 @@ class TransductionTrainer:
         ``read_emg.py:70-88``)."""
         return int(self.train_cfg.max_batch_len * (516.79 / 1000.0) / 6.0)
 
+    @property
+    def data_parallel(self) -> int:
+        return 1 if self.mesh is None else self.mesh.data_parallel
+
+    @property
+    def utt_cap(self) -> int:
+        return _round_up(self.data_cfg.utt_cap, self.data_parallel)
+
     def _pack(self, examples: List[dict]) -> PackedBatch:
-        d = self.data_cfg
+        d, dp = self.data_cfg, self.data_parallel
         fixed_chunks = fixed_utts = fixed_t = None
         if d.fixed_shapes:
             fixed_t = d.t_cap
-            fixed_utts = d.utt_cap
+            fixed_utts = self.utt_cap
             fixed_chunks = self._cache_caps()["n_chunks"]
         return pack_batch(examples, seq_len=d.seq_len,
-                          chunk_bucket=d.chunk_bucket, utt_bucket=8,
+                          chunk_bucket=_round_up(d.chunk_bucket, dp),
+                          utt_bucket=_round_up(8, dp),
                           fixed_chunks=fixed_chunks, fixed_utts=fixed_utts,
                           fixed_t=fixed_t)
 
@@ -116,8 +145,16 @@ class TransductionTrainer:
               model: Optional[Forward] = None, **kwargs
               ) -> TransductionLossOut:
         if model is None:
-            pred, phone = self.model(db.raw_emg, train=train,
+            raw = db.raw_emg
+            if train and self.mesh is not None:
+                first, count = self.mesh.rows(raw.shape[0])
+                raw = raw[first: first + count]
+            pred, phone = self.model(raw, train=train,
                                      generator=self.generator)
+            if train and self.mesh is not None:
+                group = self.mesh.data_group
+                pred, phone = (all_gather(x, group, 0, "slice")
+                               for x in (pred, phone))
         else:
             pred, phone = model(db.raw_emg)
         return transduction_loss(
@@ -148,8 +185,9 @@ class TransductionTrainer:
         """The fixed shapes of a batch gathered on the device, the same as
         ``_pack``'s."""
         d = self.data_cfg
+        cb = _round_up(d.chunk_bucket, self.data_parallel)
         return dict(n_chunks=_round_up(-(-self.frames_cap // d.seq_len) + 2,
-                                       d.chunk_bucket),
+                                       cb),
                     seq_len=d.seq_len, t_cap=d.t_cap, text_cap=128)
 
     @staticmethod
@@ -167,7 +205,7 @@ class TransductionTrainer:
 
     def _cache_fits(self, corpus: DeviceCorpus, ids: Sequence[int]) -> bool:
         return self._cache_guard_ok(corpus, list(ids), self._cache_caps(),
-                                    self.data_cfg.utt_cap)
+                                    self.utt_cap)
 
     def train_step_ids(self, corpus: DeviceCorpus, ids: Sequence[int],
                        lr: float) -> Optional[TransductionLossOut]:
@@ -177,7 +215,7 @@ class TransductionTrainer:
         when the batch exceeds the fixed caps; the caller then packs it on
         the host. Only the (U,) id vector crosses to the device."""
         caps = self._cache_caps()
-        u_cap = self.data_cfg.utt_cap
+        u_cap = self.utt_cap
         ids = corpus.order_silent_first(ids)
         if not self._cache_guard_ok(corpus, ids, caps, u_cap):
             return None
@@ -248,6 +286,7 @@ class TransductionTrainer:
         os.makedirs(cfg.output_directory, exist_ok=True)
         if self.model is None:
             self.init_state(seed)
+        writer = is_writer(self.model)
         if resume and checkpoint_exists(cfg.output_directory):
             extra = restore_checkpoint(cfg.output_directory, self)
             global_step = int(extra.get("global_step", self.optimizer.count))
@@ -310,7 +349,7 @@ class TransductionTrainer:
                                    "scale": plateau.scale}})
             export_reference_checkpoint(
                 self.model, os.path.join(cfg.output_directory, "model.pt"))
-            if save_sound_outputs and vocoder is not None:
+            if save_sound_outputs and vocoder is not None and writer:
                 from ..eval.synthesis import save_output
 
                 save_output(self, devset[0], os.path.join(

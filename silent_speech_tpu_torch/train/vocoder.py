@@ -19,8 +19,13 @@ generator half takes no discriminator weight gradients. Both halves run
 under cuDNN's deterministic algorithms, so a resumed run repeats an
 uninterrupted one bit for bit on the card. The full GAN state (both
 models, both optimizers, the step) is one ``torch.save`` file, not orbax.
-The JAX trainer's data parallelism over a mesh is not ported (multi-GPU is
-a later slice).
+
+On a mesh (``mesh=``, ``parallel/mesh.py``), as in JAX, the GAN trains
+data-parallel only: both models are replicated on every rank, each step's
+segment batch (the same on every rank) is split over ``data`` and must
+divide by it, and both updates of the step average their gradients over
+``data``, since every loss is a mean over equal shards; the metrics are
+averaged likewise. Rank 0 alone writes files.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from ..models.hifigan_discriminators import (
     HiFiGANDiscriminators, discriminator_loss, feature_matching_loss,
     generator_adversarial_loss)
 from ..utils.audio_io import read_audio
+from ..parallel.collectives import all_reduce_
+from ..parallel.mesh import barrier, data_sync
 from ..utils.device import deterministic_cudnn, resolve_device
 from .checkpoint import _atomic_save
 from .state import FusedAdamW
@@ -138,9 +145,11 @@ def _frozen(module: torch.nn.Module):
             p.requires_grad_(True)
 
 
-def _adamw(params) -> FusedAdamW:
+def _adamw(params, mesh=None) -> FusedAdamW:
     return FusedAdamW(params, b1=0.8, b2=0.99, eps=1e-8, weight_decay=0.01,
-                      moment_dtype=torch.float32)
+                      moment_dtype=torch.float32,
+                      grad_sync=None if mesh is None
+                      else data_sync(mesh, mean=True))
 
 
 class VocoderTrainer:
@@ -151,10 +160,14 @@ class VocoderTrainer:
                  seed: int = 0,
                  disc_periods: Tuple[int, ...] = (2, 3, 5, 7, 11),
                  disc_scales: int = 3, disc_width_div: int = 1,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         """Random weights from ``seed`` (the generator's first, then the
-        discriminators'), on ``device`` (``cuda`` unless told otherwise)."""
-        self.device = resolve_device(device)
+        discriminators'), on ``device`` (``cuda`` unless told otherwise)
+        or on ``mesh``'s."""
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.gen_cfg, self.mel_cfg = gen_cfg, mel_cfg
         self.lr, self.lr_decay = learning_rate, lr_decay
         self.mel_weight, self.fm_weight = mel_weight, fm_weight
@@ -163,23 +176,28 @@ class VocoderTrainer:
         self.disc = HiFiGANDiscriminators(
             disc_periods, disc_scales, disc_width_div).init_weights(rng).to(
                 self.device)
-        self.gen_opt = _adamw(self.generator.parameters())
-        self.disc_opt = _adamw(self.disc.parameters())
+        self.gen_opt = _adamw(self.generator.parameters(), mesh)
+        self.disc_opt = _adamw(self.disc.parameters(), mesh)
 
     def load_generator(self, checkpoint_path: str) -> None:
         """Warm start from an official checkpoint (fine-tuning); the
         generator's optimizer starts afresh."""
         self.generator.load_state_dict(
             load_generator_state(checkpoint_path), strict=True)
-        self.gen_opt = _adamw(self.generator.parameters())
+        self.gen_opt = _adamw(self.generator.parameters(), self.mesh)
 
     # ---------------- the step ----------------------------------------
     def train_step(self, mels, audio, lr: float) -> Dict[str, torch.Tensor]:
         """One GAN step on ``mels`` (B, F, 80) and ``audio`` (B, F·hop)
         (arrays or tensors) at learning rate ``lr``; returns the metrics as
-        scalars on the device."""
-        mels = torch.as_tensor(mels, dtype=torch.float32).to(self.device)
-        audio = torch.as_tensor(audio, dtype=torch.float32).to(self.device)
+        scalars on the device. On a mesh each rank takes its data rank's
+        segments of the batch."""
+        mels = torch.as_tensor(mels, dtype=torch.float32)
+        audio = torch.as_tensor(audio, dtype=torch.float32)
+        if self.mesh is not None:
+            first, count = self.mesh.rows(mels.shape[0])
+            mels, audio = (x[first: first + count] for x in (mels, audio))
+        mels, audio = mels.to(self.device), audio.to(self.device)
         gen, disc = self.generator, self.disc
         for p in disc.parameters():
             p.grad = None
@@ -205,8 +223,12 @@ class VocoderTrainer:
             g_loss = adv + self.fm_weight * fm + self.mel_weight * mel_l1
             g_loss.backward()
         self.gen_opt.step(lr)
-        return {k: v.detach() for k, v in zip(
-            METRICS, (d_loss, g_loss, adv, fm, mel_l1))}
+        values = torch.stack([v.detach() for v in
+                              (d_loss, g_loss, adv, fm, mel_l1)])
+        if self.mesh is not None:
+            values = all_reduce_(values, self.mesh.data_group) \
+                / self.mesh.data_parallel
+        return dict(zip(METRICS, values.unbind()))
 
     def learning_rate(self, step: int, steps_per_epoch: int) -> float:
         return float(np.float32(
@@ -222,9 +244,13 @@ class VocoderTrainer:
     def save_state(self, directory: str, step: int = 0) -> str:
         """Write the full GAN state (both models, both optimizers, the
         step) to ``directory/vocoder_state.pt``, replaced atomically, so
-        that the reference's 75k-step budget splits across sessions."""
+        that the reference's 75k-step budget splits across sessions. On a
+        mesh every rank calls it and rank 0 writes."""
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, STATE_FILE)
+        if self.mesh is not None and self.mesh.rank:
+            barrier(self.mesh)
+            return path
         _atomic_save({
             "generator": {k: v.detach().cpu() for k, v in
                           self.generator.state_dict().items()},
@@ -233,6 +259,8 @@ class VocoderTrainer:
             "gen_opt": self._opt_state(self.gen_opt),
             "disc_opt": self._opt_state(self.disc_opt),
             "step": step}, path)
+        if self.mesh is not None:
+            barrier(self.mesh)
         return path
 
     @torch.no_grad()
@@ -300,7 +328,9 @@ class VocoderTrainer:
     def export_torch(self, path: str) -> None:
         """Write the generator as an official-format checkpoint,
         ``{'generator': state_dict}``, which ``models.hifigan.Vocoder`` and
-        the released PyTorch code load."""
+        the released PyTorch code load (rank 0 of a mesh)."""
+        if self.mesh is not None and self.mesh.rank:
+            return
         _atomic_save({"generator": {k: v.detach().cpu() for k, v in
                                     self.generator.state_dict().items()}},
                      path)

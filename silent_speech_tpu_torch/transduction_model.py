@@ -24,6 +24,11 @@ judged by the DeepSpeech ASR (``eval/asr.py``). Without the ``deepspeech``
 package the judge is skipped with a warning and the run ends normally, as
 the JAX ``evaluate.py`` handles it (the JAX ``transduction_model.py``
 ends with the ``ImportError`` instead).
+
+On N cards it runs under ``torchrun --nproc_per_node=N -m
+silent_speech_tpu_torch.transduction_model ... [--model_parallel M]``:
+a data × model mesh of N/M × M ranks (``parallel/mesh.py``); rank 0
+alone writes ``log.txt``, checkpoints and outputs.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import logging
 from typing import Optional, Sequence
 
 from .config import DataConfig, ModelConfig, TransductionTrainConfig
-from .flags import _bool, add_data_flags, add_flag, data_config_from_args
+from .flags import (_bool, add_data_flags, add_flag, add_mesh_flags, cli_mesh,
+                    data_config_from_args)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,6 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
          "samples (0 = the default, 256000)")
     flag("t_cap", d.t_cap, "fixed-shape cap on per-utterance frames")
     flag("utt_cap", d.utt_cap, "fixed-shape cap on utterances per batch")
+    add_mesh_flags(flag)
     # the port's own
     flag("device", "cuda", "torch device to train on (cuda or cpu)")
     return ap
@@ -110,7 +117,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from .train.transduction import TransductionTrainer
     from .utils.device import resolve_device
     from .utils.run_logging import (log_device_info, log_run_provenance,
-                                    setup_run_logging)
+                                    setup_rank_logging)
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)  # no card: raise before any work
@@ -120,7 +127,8 @@ def main(argv: Optional[Sequence[str]] = None):
 
         vocoder = Vocoder(args.hifigan_checkpoint, device=device)
     model_cfg, data_cfg, train_cfg = configs_from_args(args)
-    setup_run_logging(train_cfg.output_directory)
+    mesh = cli_mesh(args, device)
+    setup_rank_logging(train_cfg.output_directory, mesh)
     log_run_provenance()
 
     trainset = EMGDataset(data_cfg, dev=False, test=False)
@@ -129,12 +137,12 @@ def main(argv: Optional[Sequence[str]] = None):
     logging.info("train / dev split: %d %d", len(trainset), len(devset))
 
     trainer = TransductionTrainer(model_cfg, data_cfg, train_cfg,
-                                  device=device)
+                                  device=device, mesh=mesh)
     log_device_info(trainer.device)
     trainer.fit(trainset, devset, vocoder=vocoder,
                 save_sound_outputs=vocoder is not None, seed=0,
                 resume=args.resume)
-    if vocoder is not None:
+    if vocoder is not None and (mesh is None or mesh.rank == 0):
         from .eval.asr import evaluate_if_installed
         from .eval.synthesis import dump_all_outputs
 

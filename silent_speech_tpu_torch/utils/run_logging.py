@@ -31,6 +31,19 @@ def setup_run_logging(output_directory: str,
         level=logging.INFO, format="%(message)s")
 
 
+def setup_rank_logging(output_directory: str, mesh,
+                       filename: str = "log.txt") -> None:
+    """``setup_run_logging`` on rank 0 of ``mesh`` (or without one), with
+    the mesh's shape as its first line; the other ranks log warnings only
+    and write no file."""
+    if mesh is not None and mesh.rank:
+        logging.basicConfig(level=logging.WARNING, format="%(message)s")
+        return
+    setup_run_logging(output_directory, filename)
+    if mesh is not None:
+        logging.info("mesh: %s", mesh.shape)
+
+
 def log_run_provenance() -> None:
     """The git SHA, the diff and argv, as the reference logs them."""
     for cmd in (["git", "rev-parse", "HEAD"], ["git", "diff"]):

@@ -26,6 +26,8 @@ from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.models.hifigan import (HiFiGANConfig, Vocoder,
                                                     init_generator)
 from silent_speech_tpu_torch.ops import build
+from silent_speech_tpu_torch.parallel import collectives, launch, mesh
+from silent_speech_tpu_torch import graft_entry
 from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
 from silent_speech_tpu_torch.train.transduction import TransductionTrainer
 from silent_speech_tpu_torch.train.vocoder import VocoderTrainer
@@ -358,3 +360,36 @@ def test_the_capture_tools_touch_no_device(tmp_path, monkeypatch):
     assert timer.steps_per_sec > 0
     path = str(tmp_path / "a.png")
     assert debug_viz.plot_alignment([0, 1, 1], save_path=path) == path
+
+
+def test_mesh_entry_points_raise_without_a_card(no_card, tmp_path):
+    # a mesh on CUDA never falls back to gloo on the CPU, nor to a virtual
+    # mesh: each rank needs its card
+    for call in (lambda: mesh.make_mesh(device="cuda"),
+                 lambda: launch.spawn(launch.check_ranks, 1, (1, "cpu"),
+                                      device="cuda"),
+                 lambda: graft_entry.entry(),
+                 lambda: graft_entry.dryrun_multichip(2),
+                 lambda: transduction_model.main(
+                     ["--output_directory", str(tmp_path),
+                      "--model_parallel", "2"])):
+        with pytest.raises(RuntimeError, match="CUDA|cards"):
+            call()
+    assert not torch.distributed.is_initialized()
+    assert not any(tmp_path.iterdir())   # raised before any work
+
+
+def test_a_mesh_issues_every_collective_even_for_one_rank():
+    # a 1x1 mesh on the CPU: gloo, and the collectives run (and count)
+    try:
+        m = mesh.make_mesh(1, 1, device="cpu")
+        assert torch.distributed.get_backend() == "gloo"
+        collectives.calls.count = 0
+        x = torch.ones(3, requires_grad=True)
+        y = collectives.reduce_from(collectives.copy_to(x, m.model_group),
+                                    m.model_group)
+        y.sum().backward()
+        assert collectives.calls.count == 2
+        assert torch.equal(x.grad, torch.ones(3))
+    finally:
+        mesh.destroy()

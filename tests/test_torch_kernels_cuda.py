@@ -136,8 +136,10 @@ def test_f32_kernel_entries_reject_bf16(card, name, args):
     lib = attention_module._library(name)
     stream = torch.cuda.current_stream().cuda_stream
     x = torch.zeros(1, device="cuda")
+    # dims, valid_len, scale, seed, threshold, 1/keep, the cells' offsets
+    # (0, 0, H), then is_bf16 = 1
     err = getattr(lib, name)(*[x.data_ptr()] * args, 1, 1, 16, 16, 1, 16,
-                             0.25, 0, 0, 1.0, 1, stream)
+                             0.25, 0, 0, 1.0, 0, 0, 1, 1, stream)
     assert err == 1   # cudaErrorInvalidValue, before any launch
 
 
@@ -867,3 +869,99 @@ def test_trace_records_the_card_s_kernels(card, tmp_path):
     events = json.loads(path.read_text())["traceEvents"]
     assert any(ev.get("cat") == "kernel" and "fwd_kernel" in ev.get("name", "")
                for ev in events)
+
+
+# ---- the dropout-cell offsets of K1f and K1b, and the mesh -------------
+SHARD = dict(b_offset=3, h_offset=4, h_total=12)
+
+
+@pytest.mark.parametrize("dtype,atol,rel", [
+    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 1e-2)])
+def test_rel_attention_with_offsets_matches_plain(card, dtype, atol, rel):
+    # rows 3.. and heads 4.. of a batch of 12 heads, with dropout: the
+    # forward against the plain version with the same cells, the backward
+    # against autograd through it
+    q, k, v, e = _inputs(200, dtype, seed=9, h=4, b=2)
+    dout = torch.randn_like(q.float()).to(dtype)
+    out = rel_attention(q, k, v, e, 100, 150, 5, DROP, **SHARD)
+    ref = rel_attention_plain(
+        q, k, v, e, 100, 150, 5, DROP,
+        store_dtype=dtype if dtype == torch.bfloat16 else None, **SHARD)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+    grads = rel_attention_bwd(q, k, v, e, dout, 100, 150, 5, DROP, **SHARD)
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v, e)]
+    rel_attention_plain(*leaves, 100, 150, 5, DROP, **SHARD).backward(
+        dout.float())
+    for got, p in zip(grads, leaves):
+        err = (got.float() - p.grad).abs().max() / p.grad.abs().max()
+        assert err.item() <= rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_attention_shard_is_the_slice_of_the_whole(card, dtype):
+    # each (row, head) cell is computed alone: a shard with its offsets
+    # gives the whole batch's outputs and dQ, dK, dV bit for bit
+    q, k, v, e = _inputs(200, dtype, seed=3, h=12, b=5)
+    dout = torch.randn_like(q.float()).to(dtype)
+    rows, heads = slice(3, 5), slice(4, 8)
+    part = [x[rows, heads].contiguous() for x in (q, k, v, dout)]
+    es = e[heads].contiguous()
+    out = rel_attention(*part[:3], es, 100, 200, 7, DROP, **SHARD)
+    whole = rel_attention(q, k, v, e, 100, 200, 7, DROP)
+    assert torch.equal(out, whole[rows, heads])
+    grads = rel_attention_bwd(*part[:3], es, part[3], 100, 200, 7, DROP,
+                              **SHARD)
+    grads_whole = rel_attention_bwd(q, k, v, e, dout, 100, 200, 7, DROP)
+    for got, want in zip(grads[:3], grads_whole[:3]):
+        assert torch.equal(got, want[rows, heads])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_attention_default_cells_are_today_s(card, dtype):
+    # the defaults (0, 0, H) draw the masks of a call without offsets
+    q, k, v, e = _inputs(200, dtype, seed=4, h=8, b=3)
+    dout = torch.randn_like(q.float()).to(dtype)
+    cells = dict(b_offset=0, h_offset=0, h_total=8)
+    assert torch.equal(rel_attention(q, k, v, e, 100, 200, 2, DROP),
+                       rel_attention(q, k, v, e, 100, 200, 2, DROP, **cells))
+    for a, b in zip(rel_attention_bwd(q, k, v, e, dout, 100, 200, 2, DROP),
+                    rel_attention_bwd(q, k, v, e, dout, 100, 200, 2, DROP,
+                                      **cells)):
+        assert torch.equal(a, b)
+
+
+def test_mesh_step_on_one_card_is_the_plain_step(card):
+    # a 1x1 mesh over a real NCCL process group: the step equals the plain
+    # trainer's bit for bit, collectives and all
+    from silent_speech_tpu_torch.parallel.collectives import calls
+    from silent_speech_tpu_torch.parallel.mesh import destroy, make_mesh
+    from silent_speech_tpu_torch.train.transduction import \
+        TransductionTrainer
+
+    cfg = ModelConfig(model_size=64, num_layers=2, num_heads=2,
+                      dim_feedforward=128, relative_positional_distance=16,
+                      compute_dtype="bfloat16")
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        plain = TransductionTrainer(cfg, device="cuda")
+        meshed = TransductionTrainer(cfg, mesh=mesh)
+        plain.init_state(0)
+        meshed.init_state(0)
+        batch = plain._pack(_transduction_examples())
+        calls.count = 0
+        out_m = meshed.train_step(batch, 1e-3)
+        assert calls.count > 0
+        out_p = plain.train_step(batch, 1e-3)
+        assert torch.equal(out_m.loss, out_p.loss)
+        for a, b in zip(meshed.model.parameters(), plain.model.parameters()):
+            assert torch.equal(a.grad, b.grad)
+            assert torch.equal(a, b)
+    finally:
+        destroy()
+
+
+def test_mesh_asks_a_card_a_rank(card):
+    from silent_speech_tpu_torch.graft_entry import dryrun_multichip
+
+    with pytest.raises(RuntimeError, match="cards"):
+        dryrun_multichip(torch.cuda.device_count() + 1, "cuda")
