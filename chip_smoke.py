@@ -9,7 +9,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. build every CUDA kernel from ``silent_speech_tpu_torch/csrc`` with nvcc,
    one process per source, all started together, and beside them the
-   native beam search with g++;
+   port's native library (the beam search and the FLAC decoder) with g++;
 2. hold each kernel against its plain PyTorch version on the card: the
    attention forward (bf16 runs one WMMA kernel, f32 the f32 one; serving
    shapes and the training shapes with dropout, the recognition
@@ -22,7 +22,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    1001 and integer costs with many exact ties; bf16 and f32) and the
    CTC forward and backward (optax's clamped lattice, ``csrc/ctc.cu``) at
    a recognition micro-step's shape with padding rows, a repeat and a last
-   label of 0, with and without an infeasible row; two calls must be
+   label of 0, with and without an infeasible row, and at the kernels'
+   staging edges (rows of 1, F - 1, F, F + 1 frames of either kernel's
+   chunk, 0 to 128 labels across the warp edges); two calls must be
    bit-equal and the gradient exactly 0 where none flows; and the zero-phase
    filter chain (``csrc/filtfilt.cu``: seven notches and the 2 Hz
    high-pass in one launch) at 8 utterances x 8 channels of ragged lengths
@@ -133,7 +135,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``model.pt``, the epoch's wav and every dev utterance's, and logs the
    absent ASR judge; ``featurize_on_device`` on the card is held to the
    host ``EMGDataset`` path and the corpus build is timed both ways in
-   turns; ``evaluate --models model.pt model.pt`` must give the numbers
+   turns; every FLAC file of the corpus is decoded by the native decoder
+   (the path of every corpus read) and by the plain Python one in turns,
+   the samples equal, the seconds of each and their ratio printed beside
+   the corpus build's; ``evaluate --models model.pt model.pt`` must give the numbers
    of ``model.pt`` alone (with the vocoder), with 2 x 6 forward attention
    launches an eval group, and one of its wavs must equal
    ``vocode(inverse(predict))`` computed here; the recognition CLI trains
@@ -271,6 +276,8 @@ REC_PROFILED_STEPS = 8             # 4 updates at gradient accumulation 2
 # CTC at a recognition micro-step: 64 utterance rows (19 real), t_cap frames,
 # TEXT_CAP label positions, 38 classes
 REC_CTC = dict(u=64, t=1024, s=128, n_real=19)
+# where phase 6 saves the CTC inputs of its first micro-step
+CTC_INPUTS = os.path.join(ROOT, "build", "ctc_micro_step_inputs.pt")
 # CTC kernel vs plain: float32, the same operations; the NLL to 1e-6
 # relative (an infeasible row's ~1e5 included), the gradient to 1e-5 of its
 # largest entry (the backward's sums in another order)
@@ -348,10 +355,10 @@ FILT_DEP_OPS = 3
 # csrc/ctc.cu forward, a frame: emit[n-1] + pen (add), lae (sub, expf,
 # log1pf, add) = a, then a + le (add) and lae again = emit[n]
 CTC_FWD_DEP_OPS = 10
-# csrc/ctc.cu backward, a frame: g_emit -> g1 (mul) -> g_a (add) -> g_a·e
-# (mul) -> q (add) -> through shared memory, g_emit = g2 + q (add); the
+# csrc/ctc.cu backward, a frame: g_emit -> g1 (mul) -> g_a (add) -> q =
+# fma(g_a, e, g_c) -> to the neighbour, g_emit = g2 + q (add); the
 # exponentials take stored states only
-CTC_BWD_DEP_OPS = 5
+CTC_BWD_DEP_OPS = 4
 
 
 def max_sm_clock_hz():
@@ -494,43 +501,55 @@ def queued_ms(fn, iters: int = 20) -> float:
 
 def device_ms_per_launch(fn, kernel: str, launches: int = 20):
     """Median device time of one launch of the kernel whose profiler name
-    contains ``kernel``, over ``launches`` calls of ``fn`` under the
-    profiler: the kernel alone, where back-to-back launches from Python
-    measure the host. ``fn`` launches that one kernel. A window's trace
-    counts when it holds at least half the launches and their median lies
-    within ``PROFILE_AGREEMENT`` of ``queued_ms`` of the same call: on the
-    H100 machine a trace has come back empty, and once with launches of
-    half their event-timed length. Up to 3 windows; None (not measured)
-    when none counts. Raises when no window saw the kernel."""
+    contains ``kernel``: the kernel alone, where back-to-back launches from
+    Python measure the host. ``fn`` launches that one kernel
+    (``device_ms_by_kernel``)."""
+    return device_ms_by_kernel(fn, (kernel,), launches)[kernel]
+
+
+def device_ms_by_kernel(fn, kernels, launches: int = 20):
+    """Median device time of each kernel named in ``kernels`` (substrings
+    of the profiler's names) over ``launches`` calls of ``fn`` under the
+    profiler; ``fn`` launches each once a call. A window's trace counts
+    when every kernel shows in at least half the calls and the medians'
+    sum lies within ``PROFILE_AGREEMENT`` of ``queued_ms`` of the same
+    call: on the H100 machine a trace has come back empty, and once with
+    launches of half their event-timed length. Up to 3 windows; each None
+    (not measured) when none counts. Raises when no window saw a
+    kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     ref = queued_ms(fn)
     lo, hi = PROFILE_AGREEMENT
-    seen = 0
+    seen = {k: 0 for k in kernels}
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(launches):
                 fn()
             torch.cuda.synchronize()
-        times = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
-                 if ev.device_type == DeviceType.CUDA and kernel in ev.name]
-        seen += len(times)
-        if not times:
+        times = {k: [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA and k in ev.name]
+                 for k in kernels}
+        for k, v in times.items():
+            seen[k] += len(v)
+        if not all(times.values()):
             continue
-        median = float(np.median(times))
-        if len(times) >= launches // 2 and lo * ref <= median <= hi * ref:
-            return median
-        log(f"[profile] a trace of {kernel} refused: {len(times)} of "
-            f"{launches} launches, median {median:.4f} ms against "
-            f"{ref:.4f} ms a call by queued events")
-    if not seen:
-        raise AssertionError(f"the profiler saw no launch of {kernel} in 3 "
-                             f"windows")
-    log(f"[profile] device time of {kernel} not measured: no trace agreed "
-        f"with the queued events")
-    return None
+        medians = {k: float(np.median(v)) for k, v in times.items()}
+        if (min(map(len, times.values())) >= launches // 2
+                and lo * ref <= sum(medians.values()) <= hi * ref):
+            return medians
+        log(f"[profile] a trace of {', '.join(kernels)} refused: "
+            f"{[len(v) for v in times.values()]} of {launches} launches, "
+            f"medians {medians} ms against {ref:.4f} ms a call by queued "
+            f"events")
+    if not all(seen.values()):
+        raise AssertionError(f"the profiler saw no launch of some of "
+                             f"{', '.join(kernels)} in 3 windows: {seen}")
+    log(f"[profile] device time of {', '.join(kernels)} not measured: no "
+        f"trace agreed with the queued events")
+    return {k: None for k in kernels}
 
 
 def fmt_ms(ms) -> str:
@@ -928,6 +947,31 @@ def ctc_inputs(seed, infeasible=False, u=64, t=1024, s=128, n_real=19):
                           for x in (utt_len, labels, text_len)]
 
 
+def ctc_edge_inputs(seed):
+    """CTC inputs at the kernels' staging edges, S=128, K=38: rows of 1,
+    F - 1, F, F + 1 and T frames for the forward's chunk of F frames and
+    the backward's, T no multiple of either; label counts 0, 31, 32, 33,
+    63 (one warp of positions, then two) and 128, some rows infeasible."""
+    import torch
+    from silent_speech_tpu_torch.ops.ctc import chunk_frames
+
+    f_fwd, f_bwd = chunk_frames(38, 128)
+    t = 2 * max(f_fwd, f_bwd) + 37
+    frames = [1, f_fwd - 1, f_fwd, f_fwd + 1, f_bwd - 1, f_bwd, f_bwd + 1,
+              t]
+    counts = [0, 31, 32, 33, 63, 128]
+    rows = [(counts[i % len(counts)], n) for i, n in enumerate(frames)]
+    rows += [(c, t) for c in counts] + [(1, 1), (40, 20)]
+    rng = np.random.default_rng(seed)
+    lp = torch.log_softmax(torch.from_numpy(rng.normal(
+        size=(len(rows), t, 38)).astype(np.float32) * 2), -1)
+    labels = np.full((len(rows), 128), -1, np.int64)
+    for i, (c, _) in enumerate(rows):
+        labels[i, :c] = rng.integers(0, 37, size=c)
+    return [lp.cuda()] + [torch.tensor(x).cuda() for x in (
+        [n for _, n in rows], labels, [c for c, _ in rows])], (f_fwd, f_bwd)
+
+
 def ctc_run(fn, lp, utt_len, labels, text_len, weights):
     """``fn``'s NLL and its gradient at ``lp`` of Σ weights · NLL."""
     x = lp.detach().clone().requires_grad_()
@@ -943,8 +987,10 @@ def check_ctc(errs):
     import torch
     from silent_speech_tpu_torch.ops.ctc import ctc_nll, ctc_nll_plain
 
-    for infeasible in (False, True):
-        args = ctc_inputs(SEED + 20, infeasible, **REC_CTC)
+    edges, chunks = ctc_edge_inputs(SEED + 22)
+    for infeasible in (False, True, "edges"):
+        args = (edges if infeasible == "edges"
+                else ctc_inputs(SEED + 20, infeasible, **REC_CTC))
         weights = torch.rand(args[0].shape[0], device="cuda",
                              generator=torch.Generator(device="cuda")
                              .manual_seed(21))
@@ -954,8 +1000,13 @@ def check_ctc(errs):
         again = ctc_run(ctc_nll, *args, weights)
         nll_rel = ((nll - ref).abs() / ref.abs().clamp_min(1e-30)).max(
             ).item()
-        grad_err = (grad - ref_grad).abs().max().item()
-        tol = CTC_GRAD_RTOL * ref_grad.abs().max().item()
+        # the gradient of rows with labels: a row without labels gets an
+        # exact 0 by the kernel's contract, where autograd through the
+        # plain lattice gives -weight at each frame's blank (ROADMAP fault
+        # 16; the recognition loss gives such rows no weight)
+        text = args[3] > 0
+        grad_err = (grad[text] - ref_grad[text]).abs().max().item()
+        tol = CTC_GRAD_RTOL * ref_grad[text].abs().max().item()
         utt_len, text_len = args[1], args[3]
         frames = torch.arange(grad.shape[1], device="cuda")
         dead = (frames[None, :] >= utt_len[:, None]) | (text_len == 0)[:, None]
@@ -966,7 +1017,10 @@ def check_ctc(errs):
         log(f"[kernel] ctc U={args[0].shape[0]} ({int((text_len > 0).sum())} "
             f"real rows, the rest padding) T={args[0].shape[1]} "
             f"S={args[2].shape[1]} K=38"
-            + (", row 2 infeasible (NLL "
+            + (f", the staging edges (chunks of {chunks[0]} frames forward "
+               f"and {chunks[1]} backward; frames {args[1].tolist()}, "
+               f"labels {args[3].tolist()})" if infeasible == "edges"
+               else ", row 2 infeasible (NLL "
                f"{nll[2].item():.2f}, plain {ref[2].item():.2f})"
                if infeasible else "")
             + f": NLL max rel err {nll_rel:.3g} (tolerance {CTC_NLL_RTOL}), "
@@ -2693,6 +2747,48 @@ def held_to_host(got_examples, want_examples):
     return worst, corr, scale, ok
 
 
+def time_flac_decode(card, cfg, build_s):
+    """Phase 7, the FLAC reads: every FLAC file of the disk corpus decoded
+    by the native decoder (``utils/flac.read_flac``, the path of every
+    corpus read) and by the plain one (``read_flac_bytes``), in turns
+    native, plain, plain, native; each file's samples equal both ways.
+    Returns the seconds of each pass by decoder."""
+    from silent_speech_tpu_torch.utils import flac
+
+    files = sorted(os.path.join(root, f) for d in (
+        cfg.silent_data_directories + cfg.voiced_data_directories)
+        for root, _, names in os.walk(d) for f in names
+        if f.endswith(".flac"))
+    secs, kept = {"native": [], "plain": []}, {}
+    for way in ("native", "plain", "plain", "native"):
+        t0 = time.perf_counter()
+        out = []
+        for path in files:
+            if way == "native":
+                out.append(flac.read_flac(path))
+            else:
+                with open(path, "rb") as f:
+                    out.append(flac.read_flac_bytes(f.read()))
+        secs[way].append(time.perf_counter() - t0)
+        kept.setdefault(way, out)
+    equal = all(a[1] == b[1] and np.array_equal(a[0], b[0])
+                for a, b in zip(kept["native"], kept["plain"]))
+    samples = sum(a[0].shape[0] for a in kept["native"])
+    native_s, plain_s = min(secs["native"]), min(secs["plain"])
+    log(f"[time] {card} | FLAC decode of the disk corpus's {len(files)} "
+        f"files ({samples} samples, {samples / 22050:.1f} s at 22.05 kHz), "
+        f"in turns native, plain, plain, native: native {secs['native']} s,"
+        f" plain {secs['plain']} s; plain / native {plain_s / native_s:.1f}"
+        f"x (best of two each); samples equal: {equal} "
+        f"{'ok' if equal else 'FAIL'}; beside the corpus build (device "
+        f"{build_s['device']} s, host {build_s['host']} s), whose file "
+        f"reads take the native decoder")
+    if not equal or not files:
+        raise AssertionError("the native FLAC decoder disagrees with the "
+                             "plain one on the disk corpus")
+    return secs
+
+
 def disk_run(card, work):
     """Phase 7: the entry points a user calls, on a corpus on disk, at full
     width. Returns the launches of the whole phase."""
@@ -2835,6 +2931,7 @@ def disk_run(card, work):
         f"examples (files, featurization, upload), in turns device, host, "
         f"host, device: device {build_s['device']} s, host "
         f"{build_s['host']} s")
+    decode_s = time_flac_decode(card, cfg, build_s)
     worst, corr, scale, ok = held_to_host(kept["device"], kept["host"])
     log(f"[disk] featurize_on_device on the card against the host "
         f"EMGDataset, {len(kept['device'])} training examples: raw_emg "
@@ -2963,8 +3060,9 @@ def disk_run(card, work):
         f"launches {launches} (expected {expected})")
     if not np.isfinite(wer) or launches != expected:
         raise AssertionError("--evaluate_saved failed")
-    log(f"[disk] phase wall time {time.perf_counter() - t_phase:.1f} s; "
-        f"launches {total} (the vocoder CLIs' apart)")
+    log(f"[disk] phase wall time {time.perf_counter() - t_phase:.1f} s "
+        f"(of it the FLAC decode timing's {sum(map(sum, decode_s.values())):.1f}"
+        f" s); launches {total} (the vocoder CLIs' apart)")
     return total, vocoder_launches, corpus_inputs[0], build_s
 
 
@@ -3207,10 +3305,11 @@ def time_ctc(card, rec_ctc, errs):
     # not show; back to back for the time with it
     fwd_ms, bwd_ms, ms = (queued_ms(f) for f in (forward, backward, both))
     host_ms = cuda_time_ms(both, iters=20)
-    # the recursions alone; the backward's fixed-order gradient sum is the
-    # rest of its queued time
-    kernel_ms = {name: device_ms_per_launch(fn, f"{name}_kernel")
-                 for name, fn in (("ctc_fwd", forward), ("ctc_bwd", backward))}
+    # by kernel: the forward, and the backward's recursion and its
+    # fixed-order gradient sum
+    kernel_ms = {"ctc_fwd": device_ms_per_launch(forward, "ctc_fwd_kernel"),
+                 **{k[:-7]: v for k, v in device_ms_by_kernel(
+                     backward, ("ctc_bwd_kernel", "ctc_grad_kernel")).items()}}
     # no warm-up: the plain version ran at this shape in phase 2
     plain_ms = cuda_time_ms(lambda: ctc_run(ctc_nll_plain, lp, utt_len,
                                             labels, text_len, weights),
@@ -3258,7 +3357,8 @@ def time_ctc(card, rec_ctc, errs):
         f"at the maximum SM clock {max_sm_clock_hz()} Hz)")
     return {"shape": f"U={u} ({len(real)} with text) T={t} S={s} K={k} "
                      f"f32, longest {frames} frames",
-            "max_abs_err": max(errs[("ctc", False)], errs[("ctc", True)]),
+            "max_abs_err": max(errs[("ctc", c)]
+                               for c in (False, True, "edges")),
             "ms": ms, "ms_forward": fwd_ms, "ms_backward": bwd_ms,
             "ms_back_to_back": host_ms,
             "device_ms_by_kernel": kernel_ms,
@@ -3786,14 +3886,15 @@ def main() -> int:
 
     # 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    # the native beam search (g++) builds beside the kernels (nvcc)
+    # the native library (g++: the beam search, the FLAC decoder) builds
+    # beside the kernels (nvcc)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         beam = pool.submit(native.build)
         built = build.build()
         log(f"[build] {len(built)} kernel(s) in "
             f"{time.perf_counter() - t0:.2f} s")
         beam_lib = beam.result()
-    log(f"[build] native beam search {os.path.basename(beam_lib)}: "
+    log(f"[build] native library {os.path.basename(beam_lib)}: "
         f"{time.perf_counter() - t0:.2f} s with the kernels")
     for name, (secs, msgs) in built.items():
         log(f"[build] {name}: {secs:.2f} s")
@@ -3838,6 +3939,10 @@ def main() -> int:
     try:
         rec_launches, rec_serve_launches, rec_ctc = recognition_run(card,
                                                                     work)
+        torch.save([x.detach().cpu() for x in rec_ctc[:4]] + [rec_ctc[4]],
+                   CTC_INPUTS)
+        log(f"[rec] the micro-step's CTC inputs saved to {CTC_INPUTS} (read "
+            f"by python -m silent_speech_tpu_torch.ops.ctc_study)")
         lap("recognition")
         # 6c. streaming from phase 6's model.pt ----------------------------
         stream_launches, stream_latency = streaming_run(

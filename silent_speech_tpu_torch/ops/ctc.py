@@ -35,11 +35,13 @@ autodiff through that lattice: each ``lae``'s cotangents are
 the rounding of ``out`` enters the gradient as it does in JAX.
 
 ``ctc_nll`` launches ``csrc/ctc.cu`` for CUDA tensors: a forward kernel
-(one CTA per utterance, one thread per label position, the per-frame
+(one CTA per utterance, one thread per label position, the row's
+log-probs staged in shared memory a chunk of frames ahead, the per-frame
 states kept in global memory) and a backward that runs the same reverse
-recursion as autodiff (cotangents, not log-betas) and then sums the
-per-position occupancies into ``grad[u, t, k]`` in ascending position
-order, without atomics, so two calls are bit-equal. CPU tensors take
+recursion as autodiff (cotangents, not log-betas; each chunk's step
+coefficients computed in parallel first) and then sums the per-position
+occupancies into ``grad[u, t, k]`` in ascending position order, without
+atomics, so two calls are bit-equal. CPU tensors take
 ``ctc_nll_plain`` (the lattice above as a loop over frames, vectorized
 over utterances and positions; its gradient from autograd), the oracle of
 the tests. ``ctc_grad_plain`` mirrors the kernel's explicit backward in
@@ -313,6 +315,14 @@ ctc_nll.launches = 0
 ctc_nll.backward_launches = 0
 
 
+def chunk_frames(k: int, s: int) -> Tuple[int, int]:
+    """Frames a chunk of the forward and of the backward kernel at ``k``
+    classes and ``s`` label positions, as the kernels choose them (needs
+    the built kernel)."""
+    lib = _library()
+    return lib.ctc_chunk_frames(k, s, 0), lib.ctc_chunk_frames(k, s, 1)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("ctc")
@@ -321,6 +331,8 @@ def _library() -> ctypes.CDLL:
     lib.ctc_forward.restype = i32
     lib.ctc_backward.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
     lib.ctc_backward.restype = i32
+    lib.ctc_chunk_frames.argtypes = [i32] * 3
+    lib.ctc_chunk_frames.restype = i32
     lib.ctc_error_string.argtypes = [i32]
     lib.ctc_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,15 +1,19 @@
-"""FLAC decoding and encoding in pure Python.
+"""FLAC decoding and encoding.
 
-Own copy of the JAX package's ``silent_speech_tpu/utils/flac.py``. The reference dataset stores audio as
-``{i}_audio_clean.flac`` read through libsndfile (``data_utils.py:64-65``);
-the port carries its own decoder. It covers what standard encoders write:
+Own copy of the JAX package's ``silent_speech_tpu/utils/flac.py``. The
+reference dataset stores audio as ``{i}_audio_clean.flac`` read through
+libsndfile (``data_utils.py:64-65``); the port carries its own decoders.
+``read_flac`` decodes through the port's native library
+(``native/flac_codec.cc``, built at first use by ``utils/native.py``);
+``read_flac_bytes`` is the same decoder in pure Python, the plain version
+the tests hold the native one to. Both cover what standard encoders write:
 constant, verbatim, fixed and LPC subframes, Rice and Rice2 residual
 partitions, left/right/mid-side stereo, 8 to 24 bits. Samples come back as
 float64 in [-1, 1), (frames,) for mono and (frames, channels) otherwise.
 ``write_flac`` encodes with fixed order-2 prediction and one Rice
 partition (verbatim for blocks of 4 samples or fewer), byte for byte as
 the JAX package's encoder does; the synthetic corpus writes its audio
-with it.
+with it. A stream cut short raises ``ValueError`` in both decoders.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
+
+from . import native
 
 
 class BitReader:
@@ -247,6 +253,16 @@ def _decode_frame(data: bytes, pos: int, stream_bps: int,
 
 
 def read_flac_bytes(data: bytes) -> Tuple[np.ndarray, int]:
+    """FLAC bytes → (samples, sample rate), in Python. A stream that ends
+    inside a block, or before STREAMINFO's sample count, raises
+    ``ValueError("truncated FLAC stream")``."""
+    try:
+        return _read_flac_bytes(data)
+    except IndexError as e:
+        raise ValueError("truncated FLAC stream") from e
+
+
+def _read_flac_bytes(data: bytes) -> Tuple[np.ndarray, int]:
     if not (data[:4] == b"fLaC"):
         raise ValueError("not a FLAC file")
     pos = 4
@@ -277,10 +293,14 @@ def read_flac_bytes(data: bytes) -> Tuple[np.ndarray, int]:
     decoded = 0
     while pos < len(data) - 2:
         block, pos = _decode_frame(data, pos, bps, n_channels, sample_rate)
+        if pos > len(data):  # the frame's CRC-16 lies past the end
+            raise ValueError("truncated FLAC stream")
         blocks.append(block)
         decoded += block.shape[0]
         if total_samples and decoded >= total_samples:
             break
+    if total_samples and decoded < total_samples:
+        raise ValueError("truncated FLAC stream")
     samples = np.concatenate(blocks, axis=0)
     if total_samples:
         samples = samples[:total_samples]
@@ -292,14 +312,11 @@ def read_flac_bytes(data: bytes) -> Tuple[np.ndarray, int]:
 
 
 def read_flac(path: str) -> Tuple[np.ndarray, int]:
-    """A FLAC file → (samples, sample rate). A file that is not FLAC, or
-    ends inside a block, raises ``ValueError``."""
-    with open(path, "rb") as f:
-        data = f.read()
-    try:
-        return read_flac_bytes(data)
-    except IndexError as e:
-        raise ValueError(f"{path}: truncated FLAC stream") from e
+    """A FLAC file → (samples, sample rate), through the native decoder. A
+    file that is not FLAC, or ends inside a block or before its last
+    sample, raises ``ValueError``; a failed build of the native library
+    raises ``RuntimeError``."""
+    return native.read_flac(path)
 
 
 # ---------------------------------------------------------------------------

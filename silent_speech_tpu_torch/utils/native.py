@@ -1,11 +1,12 @@
-"""The native CTC beam search: its build and its ctypes bindings.
+"""The native CTC beam search and FLAC decoder: their build and their
+ctypes bindings.
 
-Own copy of the beam-search half of the JAX package's native library
+Own copy of the JAX package's native library
 (``silent_speech_tpu/utils/native.py``): the sources in
 ``silent_speech_tpu_torch/native/`` (the prefix beam search without an LM,
-the ARPA and KenLM-probing word LMs and the LM-fused beam search) compile
-with ``g++ -O3 -std=c++17 -fPIC -shared`` into
-``build/native/libssp_beam-<hash>.so`` at the root of the checkout, at
+the ARPA and KenLM-probing word LMs, the LM-fused beam search and the FLAC
+decoder) compile with ``g++ -O3 -std=c++17 -fPIC -shared`` into
+``build/native/libssp_native-<hash>.so`` at the root of the checkout, at
 first use. The hash covers the sources and the flags, and the library is
 written under a temporary name and renamed into place, so processes that
 build at the same time never load a half-written file. A build that fails
@@ -20,13 +21,13 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-SOURCES = ("ctc_beam.cc", "arpa_lm.cc", "probing_lm.cc")
+SOURCES = ("ctc_beam.cc", "arpa_lm.cc", "probing_lm.cc", "flac_codec.cc")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
@@ -37,6 +38,7 @@ _lm_handles = {}
 _c_double_p = ctypes.POINTER(ctypes.c_double)
 _c_int32_p = ctypes.POINTER(ctypes.c_int32)
 _c_int64_p = ctypes.POINTER(ctypes.c_int64)
+_c_float_p = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     "ssp_ctc_beam_decode": (ctypes.c_int32, [
         _c_double_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
@@ -53,7 +55,18 @@ _SIGNATURES = {
         ctypes.c_int64, _c_double_p, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, ctypes.c_char_p, _c_int32_p, ctypes.c_int32]),
+    "ssp_flac_decode": (ctypes.c_int64, [
+        ctypes.c_char_p, ctypes.c_int64, _c_int32_p, _c_int32_p,
+        ctypes.POINTER(_c_float_p)]),
+    "ssp_free": (None, [ctypes.c_void_p]),
 }
+# ssp_flac_decode's error codes (native/flac_codec.cc)
+FLAC_TRUNCATED = -8
+FLAC_ERRORS = {-1: "not a FLAC stream", -2: "no STREAMINFO block",
+               -3: "reserved block size", -4: "reserved sample size",
+               -5: "bad subframe", -6: "reserved channel assignment",
+               -7: "out of memory", FLAC_TRUNCATED: "truncated FLAC stream",
+               -9: "lost frame sync"}
 
 
 def library_path() -> Path:
@@ -62,7 +75,7 @@ def library_path() -> Path:
     for path in sorted(SOURCE_DIR.glob("*")):
         if path.suffix in (".cc", ".h"):
             digest.update(path.name.encode() + path.read_bytes())
-    return BUILD_DIR / f"libssp_beam-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libssp_native-{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -77,7 +90,8 @@ def build() -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building the native beam search failed (exit "
+        raise RuntimeError(f"building the native beam search and FLAC "
+                           f"decoder failed (exit "
                            f"{proc.returncode}): {' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
@@ -153,3 +167,30 @@ def ctc_beam_decode(log_probs: np.ndarray, charset: str, blank_id: int,
     if n < 0:
         raise ValueError(f"the native beam search refused the LM (code {n})")
     return out[:n].tolist()
+
+
+def read_flac(path: str) -> Tuple[np.ndarray, int]:
+    """A FLAC file → (float64 samples, sample rate): (frames,) for mono,
+    (frames, channels) otherwise. A stream cut short raises ``ValueError``
+    ("<path>: truncated FLAC stream"), and so does any other stream the
+    decoder refuses, with its code."""
+    lib = get_lib()
+    with open(path, "rb") as f:
+        data = f.read()
+    rate, channels = ctypes.c_int32(0), ctypes.c_int32(0)
+    out = _c_float_p()
+    n = lib.ssp_flac_decode(data, len(data), ctypes.byref(rate),
+                            ctypes.byref(channels), ctypes.byref(out))
+    if n == FLAC_TRUNCATED:
+        raise ValueError(f"{path}: truncated FLAC stream")
+    if n < 0:
+        raise ValueError(f"{path}: the native FLAC decoder refused it: "
+                         f"{FLAC_ERRORS.get(n, 'unknown error')} (code {n})")
+    try:
+        audio = np.ctypeslib.as_array(out, shape=(n * channels.value,)
+                                      ).astype(np.float64)
+    finally:
+        lib.ssp_free(out)
+    if channels.value > 1:
+        audio = audio.reshape(n, channels.value)
+    return audio, rate.value

@@ -207,10 +207,15 @@ def test_recognition_fit_runs_on_the_cpu_only_when_asked(tmp_path):
 
 
 def test_the_native_search_builds_from_the_port_tree_alone():
-    # its own copy of the C++ sources, built by g++ into build/native;
-    # never the JAX package's cpp/ directory or its Makefile
+    # its own copy of the C++ sources, the beam search's and the FLAC
+    # decoder's, built by g++ into build/native; never the JAX package's
+    # cpp/ directory or its Makefile
     assert native.SOURCE_DIR == ROOT / "silent_speech_tpu_torch" / "native"
     assert native.BUILD_DIR == ROOT / "build" / "native"
+    assert "flac_codec.cc" in native.SOURCES
+    for name in native.SOURCES:
+        assert (native.SOURCE_DIR / name).is_file()
+    assert native.library_path().parent == native.BUILD_DIR
     text = (ROOT / "silent_speech_tpu_torch" / "utils" / "native.py"
             ).read_text()
     assert "cpp/" not in text and "make" not in text

@@ -13,8 +13,8 @@ import torch
 from silent_speech_tpu_torch.config import ModelConfig
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.ops import rel_attention as attention_module
-from silent_speech_tpu_torch.ops.ctc import (MAX_LABELS, ctc_nll,
-                                             ctc_nll_plain)
+from silent_speech_tpu_torch.ops.ctc import (MAX_LABELS, ctc_grad_plain,
+                                             ctc_nll, ctc_nll_plain)
 from silent_speech_tpu_torch.ops.dtw import (MAX_ROWS, dtw_align_batch,
                                              dtw_align_batch_plain)
 from silent_speech_tpu_torch.ops.rel_attention import (
@@ -566,6 +566,85 @@ def test_ctc_kernel_is_bit_equal_between_calls(card):
     second = _ctc_run(ctc_nll, *args, weights)
     assert torch.equal(first[0], second[0])
     assert torch.equal(first[1], second[1])
+
+
+def _ctc_rows(seed, t, s, rows):
+    """Log-probs (U, T, 38) and one row per (label count, frame count) of
+    ``rows``, labels in [0, 37), on the card."""
+    rng = np.random.default_rng(seed)
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.normal(size=(len(rows), t, 38)).astype(np.float32) * 2), -1)
+    labels = np.full((len(rows), s), -1, np.int64)
+    for i, (n_labels, _) in enumerate(rows):
+        labels[i, :n_labels] = rng.integers(0, 37, size=n_labels)
+    return [lp.cuda()] + [torch.tensor(x).cuda() for x in (
+        [r[1] for r in rows], labels, [r[0] for r in rows])]
+
+
+def _ctc_matches_plain_and_repeats(args):
+    weights = torch.rand(args[0].shape[0], device="cuda")
+    nll, grad = _ctc_run(ctc_nll, *args, weights)
+    again = _ctc_run(ctc_nll, *args, weights)
+    torch.cuda.synchronize()
+    ref, ref_grad = _ctc_run(ctc_nll_plain, *args, weights)
+    torch.testing.assert_close(nll, ref, rtol=CTC_NLL_RTOL, atol=0)
+    # the gradient of rows with labels; a row without labels gets an exact
+    # 0 by the kernel's contract (ctc_grad_plain's too), where autograd
+    # through the plain lattice gives -weight at each frame's blank
+    # (ROADMAP fault 16; the recognition loss gives such rows no weight)
+    text = args[3] > 0
+    tol = CTC_GRAD_RTOL * float(ref_grad[text].abs().max())
+    torch.testing.assert_close(grad[text], ref_grad[text], rtol=0, atol=tol)
+    assert torch.equal(nll, again[0]) and torch.equal(grad, again[1])
+    utt_len, text_len = args[1], args[3]
+    for i in range(len(utt_len)):   # exact zeros past a row's frames
+        assert not grad[i, int(utt_len[i]):].any()
+    assert not grad[text_len == 0].any()
+    torch.testing.assert_close(grad, ctc_grad_plain(*args, 37) * weights[
+        :, None, None], rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("frames", ["one", "chunk_less_one", "chunk",
+                                    "chunk_plus_one", "all"])
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_ctc_kernel_at_the_chunk_edges(card, which, frames):
+    # the chunk of the forward (log-probs staged) or of the backward (step
+    # coefficients), at S = 128 label positions; T is no multiple of it
+    from silent_speech_tpu_torch.ops.ctc import chunk_frames
+
+    f = chunk_frames(38, 128)[which == "backward"]
+    t = 2 * f + 37
+    n = {"one": 1, "chunk_less_one": f - 1, "chunk": f,
+         "chunk_plus_one": f + 1, "all": t}[frames]
+    # a feasible row, one with as many labels as frames allow, and an
+    # infeasible one (more labels than frames)
+    _ctc_matches_plain_and_repeats(_ctc_rows(
+        6, t, 128, [(min(n // 3, 128), n), (min(n, 128), n),
+                    (min(n + 2, 128), n)]))
+
+
+@pytest.mark.parametrize("n_labels", [0, 31, 32, 33, 63, 64])
+def test_ctc_kernel_at_the_warp_edges(card, n_labels):
+    # positions 0..L over one warp (L = 31), two (32, 33, 63) and three (64)
+    _ctc_matches_plain_and_repeats(_ctc_rows(
+        7, 200, 64, [(n_labels, 200), (n_labels, 150), (1, 200)]))
+
+
+def test_ctc_kernel_at_the_label_limit(card):
+    # 1023 positions, the most a CTA holds, over a short utterance: the
+    # ~1e5 loss of an infeasible target beside feasible rows
+    _ctc_matches_plain_and_repeats(_ctc_rows(
+        8, 40, MAX_LABELS, [(MAX_LABELS, 40), (1000, 33), (0, 40),
+                            (13, 40)]))
+
+
+def test_ctc_kernel_gives_nan_for_a_label_outside_the_classes(card):
+    lp, utt_len, labels, text_len = _ctc_rows(9, 100, 16, [(10, 90),
+                                                           (12, 100)])
+    fixed = ctc_nll(lp, utt_len, labels, text_len, 37)
+    labels[1, 3] = 40
+    nll = ctc_nll(lp, utt_len, labels, text_len, 37)
+    assert torch.isnan(nll[1]) and torch.equal(nll[0], fixed[0])
 
 
 def test_ctc_kernel_rejects_rows_past_its_limit(card):
