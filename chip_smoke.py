@@ -25,7 +25,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    label of 0, with and without an infeasible row, and at the kernels'
    staging edges (rows of 1, F - 1, F, F + 1 frames of either kernel's
    chunk, 0 to 128 labels across the warp edges); two calls must be
-   bit-equal and the gradient exactly 0 where none flows; and the zero-phase
+   bit-equal, the gradient exactly 0 past each row's frames and exactly
+   −weight at each live frame's blank on a row without labels; and the
+   zero-phase
    filter chain (``csrc/filtfilt.cu``: seven notches and the 2 Hz
    high-pass in one launch) at 8 utterances x 8 channels of ragged lengths
    (one at the high-pass's padlen + 1), torch.equal to its plain version
@@ -192,7 +194,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    micro-step's own inputs (against ``F.ctc_loss`` forward and backward
    on its rows with text, timed as the library column, never called by
    the port), the filter chain at phase 7's corpus build's own inputs
-   (also in ns a step of its dependent chain), both chain-bound kernels
+   (saved to ``build/filtfilt_corpus_inputs.pt`` for ``python -m
+   silent_speech_tpu_torch.ops.filtfilt_study``) and at S-corpus, a
+   synthetic 256 MiB group of 512 utterances of up to 16,384 samples
+   (its shortest and longest utterance held against the plain version in
+   a worker process), both also in ns a step of the dependent chain
+   and S-corpus against its scratch's traffic, both chain-bound kernels
    also against a latency bound (the chain's length times its dependent
    FP32 operations a step at the maximum SM clock), and
    profile one forward and one training step (device busy time, idle
@@ -208,6 +215,7 @@ import concurrent.futures
 import contextlib
 import json
 import logging
+import multiprocessing
 import os
 import shutil
 import sys
@@ -278,6 +286,8 @@ REC_PROFILED_STEPS = 8             # 4 updates at gradient accumulation 2
 REC_CTC = dict(u=64, t=1024, s=128, n_real=19)
 # where phase 6 saves the CTC inputs of its first micro-step
 CTC_INPUTS = os.path.join(ROOT, "build", "ctc_micro_step_inputs.pt")
+# where phase 7 saves its corpus build's filter-chain inputs
+FILTER_INPUTS = os.path.join(ROOT, "build", "filtfilt_corpus_inputs.pt")
 # CTC kernel vs plain: float32, the same operations; the NLL to 1e-6
 # relative (an infeasible row's ~1e5 included), the gradient to 1e-5 of its
 # largest entry (the backward's sums in another order)
@@ -983,7 +993,8 @@ def ctc_run(fn, lp, utt_len, labels, text_len, weights):
 def check_ctc(errs):
     """Phase 2, CTC: the kernel against the plain version at a recognition
     micro-step's shape, with padding rows, with and without an infeasible
-    row; two calls bit-equal; exact zeros where no gradient flows."""
+    row; two calls bit-equal; exact zeros past each row's frames, and a row
+    without labels at exactly −weight on each live frame's blank."""
     import torch
     from silent_speech_tpu_torch.ops.ctc import ctc_nll, ctc_nll_plain
 
@@ -1000,17 +1011,19 @@ def check_ctc(errs):
         again = ctc_run(ctc_nll, *args, weights)
         nll_rel = ((nll - ref).abs() / ref.abs().clamp_min(1e-30)).max(
             ).item()
-        # the gradient of rows with labels: a row without labels gets an
-        # exact 0 by the kernel's contract, where autograd through the
-        # plain lattice gives -weight at each frame's blank (ROADMAP fault
-        # 16; the recognition loss gives such rows no weight)
-        text = args[3] > 0
-        grad_err = (grad[text] - ref_grad[text]).abs().max().item()
-        tol = CTC_GRAD_RTOL * ref_grad[text].abs().max().item()
+        # every row against autograd through the plain lattice: a row
+        # without labels (NLL −Σ_t lp[t, blank]) gets −weight at each live
+        # frame's blank and 0 elsewhere, exactly
+        grad_err = (grad - ref_grad).abs().max().item()
+        tol = CTC_GRAD_RTOL * ref_grad.abs().max().item()
         utt_len, text_len = args[1], args[3]
         frames = torch.arange(grad.shape[1], device="cuda")
-        dead = (frames[None, :] >= utt_len[:, None]) | (text_len == 0)[:, None]
-        zeros = not grad[dead].any()
+        live = frames[None, :] < utt_len[:, None]
+        empty = live & (text_len == 0)[:, None]
+        zeros = (not grad[~live].any()
+                 and not grad[empty][:, :37].any()
+                 and torch.equal(grad[empty][:, 37],
+                                 -weights[:, None].expand_as(live)[empty]))
         same = torch.equal(nll, again[0]) and torch.equal(grad, again[1])
         ok = (bool(torch.isfinite(nll).all()) and nll_rel <= CTC_NLL_RTOL
               and grad_err <= tol and zeros and same)
@@ -1026,7 +1039,8 @@ def check_ctc(errs):
             + f": NLL max rel err {nll_rel:.3g} (tolerance {CTC_NLL_RTOL}), "
             f"gradient max_abs_err {grad_err:.3g} (tolerance {tol:.3g} = "
             f"{CTC_GRAD_RTOL} x max|ref|), exact zeros past each row's "
-            f"frames and on rows without labels: {zeros}, two calls "
+            f"frames and -weight at the blank of rows without labels: "
+            f"{zeros}, two calls "
             f"bit-equal: {same} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("the CTC kernel disagrees with its plain "
@@ -1530,6 +1544,7 @@ def reset_launches():
         rel_attention, rel_attention_bwd)
 
     rel_attention.launches = rel_attention_bwd.launches = 0
+    rel_attention.f32_launches = rel_attention_bwd.f32_launches = 0
     dtw_align_batch.launches = dtw_align_batch.dp_only_launches = 0
     ctc_nll.launches = ctc_nll.backward_launches = 0
     filtfilt_chain.launches = 0
@@ -1542,19 +1557,43 @@ def read_launches():
     from silent_speech_tpu_torch.ops.rel_attention import (
         rel_attention, rel_attention_bwd)
 
-    return {"rel_attention_fwd": rel_attention.launches,
-            "rel_attention_bwd": rel_attention_bwd.launches,
-            "dtw_align": dtw_align_batch.launches,
-            "dtw_align_dp_only": dtw_align_batch.dp_only_launches,
-            "ctc": ctc_nll.launches, "ctc_bwd": ctc_nll.backward_launches,
-            "filtfilt_chain": filtfilt_chain.launches}
+    return Launches({"rel_attention_fwd": rel_attention.launches,
+                     "rel_attention_bwd": rel_attention_bwd.launches,
+                     "dtw_align": dtw_align_batch.launches,
+                     "dtw_align_dp_only": dtw_align_batch.dp_only_launches,
+                     "ctc": ctc_nll.launches,
+                     "ctc_bwd": ctc_nll.backward_launches,
+                     "filtfilt_chain": filtfilt_chain.launches},
+                    f32={"rel_attention_fwd": rel_attention.f32_launches,
+                         "rel_attention_bwd":
+                             rel_attention_bwd.f32_launches})
+
+
+class Launches(dict):
+    """Launches by kernel; ``f32`` holds how many of the attention
+    launches took the f32 routes (``csrc/rel_attention_fwd.cu``,
+    ``csrc/rel_attention_bwd.cu``). Comparisons look at the dict alone."""
+
+    def __init__(self, counts, f32=None):
+        super().__init__(counts)
+        self.f32 = dict(f32 or {"rel_attention_fwd": 0,
+                                "rel_attention_bwd": 0})
+
+    def add(self, other):
+        """Add ``other``'s counts, and its f32 share where it has one
+        (else this one's f32 share is no longer known)."""
+        for k, v in other.items():
+            self[k] += v
+        theirs = getattr(other, "f32", None)
+        self.f32 = (None if self.f32 is None or theirs is None
+                    else {k: v + theirs[k] for k, v in self.f32.items()})
 
 
 def launch_counts(**counts):
     """A ``read_launches()`` dict with ``counts`` and 0 for the rest."""
     names = ("rel_attention_fwd", "rel_attention_bwd", "dtw_align",
              "dtw_align_dp_only", "ctc", "ctc_bwd", "filtfilt_chain")
-    return {name: counts.get(name, 0) for name in names}
+    return Launches({name: counts.get(name, 0) for name in names})
 
 
 def train(card):
@@ -2815,8 +2854,7 @@ def disk_run(card, work):
     total = launch_counts()
 
     def add(counts):
-        for k, v in counts.items():
-            total[k] += v
+        total.add(counts)
 
     t0 = time.perf_counter()
     cfg = generate_corpus(os.path.join(work, "corpus"), seed=SEED,
@@ -3162,8 +3200,7 @@ def capture_run(card, work, int8_bundle):
     if not ok:
         raise AssertionError("the captured session's device featurization "
                              "failed")
-    for k, v in launches.items():
-        total[k] += v
+    total.add(launches)
 
     # each utterance from phase 3's int8 transduction bundle
     layers = int8_bundle.model.cfg.num_layers
@@ -3186,8 +3223,7 @@ def capture_run(card, work, int8_bundle):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("serving the captured session failed")
-    for k, v in launches.items():
-        total[k] += v
+    total.add(launches)
     log(f"[capture] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -3556,12 +3592,22 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
+    def f32_launches(name):
+        """Of an attention kernel's launches, those of the f32 route by
+        path (None where a path's count lost its f32 share)."""
+        by_path = {path: (None if getattr(counts, "f32", None) is None
+                          else counts.f32[name])
+                   for path, counts in path_launches.items()}
+        return {"launches_f32": sum(v for v in by_path.values() if v),
+                "launches_f32_by_path": by_path}
+
     return [
         {"name": "rel_attention_fwd", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/rel_attention_fwd_wmma.cu",
          "source_f32": "silent_speech_tpu_torch/csrc/rel_attention_fwd.cu",
          "replaces": "silent_speech_tpu/ops/pallas/rel_attention.py:386",
          "shape": shape, **launches("rel_attention_fwd"),
+         **f32_launches("rel_attention_fwd"),
          "max_abs_err": errs[("rel_attention_fwd", "bfloat16")],
          "max_abs_err_unrounded_plain": errs[("rel_attention_fwd_unrounded",
                                               "bfloat16")],
@@ -3579,6 +3625,7 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
          "source_f32": "silent_speech_tpu_torch/csrc/rel_attention_bwd.cu",
          "replaces": "silent_speech_tpu/ops/pallas/rel_attention.py:414",
          "shape": shape, **launches("rel_attention_bwd"),
+         **f32_launches("rel_attention_bwd"),
          "max_abs_err": errs[("rel_attention_bwd", "bfloat16")],
          "max_abs_err_f32": errs[("rel_attention_bwd", "float32")],
          "max_err_offsets": errs[("rel_attention_offsets", "bfloat16")],
@@ -3620,15 +3667,71 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
     ]
 
 
-def time_filtfilt(card, path_launches, corpus_inputs, errs, build_s,
-                  stream_latency):
-    """Phase 8, the filter chain at the shape of phase 7's corpus build
-    (its own inputs): ms a launch against the bound and the plain version,
-    and ns a step of its dependent chain. Returns its kernels JSON entry."""
-    import torch
+def filtfilt_bounds(lengths, t_pad, c, coeffs):
+    """The filter chain's byte bound (each valid input sample read once,
+    the padded output written once) and operation bound, the chain's
+    steps for its longest column and their latency bound, and the time to
+    stream the kernel's own scratch traffic (each pass reads and writes
+    each column's samples once) at the card's memory rate."""
     from silent_speech_tpu_torch.dsp.device_filters import padlen
+    from silent_speech_tpu_torch.ops.filtfilt_study import chain_steps
+
+    lens = [int(n) for n in lengths]
+    b = len(lens)
+    # a step of a filter with nd delays: 2 + 4·nd operations, 2 passes of
+    # L + 2p steps a column
+    nbytes = 4 * c * sum(lens) + 4 * b * t_pad * c + 4 * b
+    ops = sum(c * 2 * (n + 2 * padlen(bb, aa)) * (2 + 4 * (len(bb) - 1))
+              for n in lens for bb, aa in coeffs)
+    bound_ms, bound_by = _bound(nbytes, ops, "float32")
+    steps = chain_steps(lens, coeffs)
+    scratch_bytes = sum(c * 8 * 2 * (n + 2 * padlen(bb, aa))
+                        for n in lens for bb, aa in coeffs)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "chain_steps": steps,
+            "latency_bound_ms": latency_bound_ms(steps, FILT_DEP_OPS),
+            "scratch_stream_ms": scratch_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _plain_chain(x, lengths, coeffs):
+    """The plain filter chain on CPU tensors and its seconds (run in a
+    worker process)."""
+    import torch
+    from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain_plain
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = filtfilt_chain_plain(x, lengths, coeffs)
+    return out, time.perf_counter() - t0
+
+
+def start_corpus_group(pool):
+    """Phase 8's S-corpus, a synthetic 256 MiB group of 512 utterances of
+    6,000..16,384 samples (``ops/filtfilt_study.corpus_group``), launched
+    once on the card; its shortest and longest utterance go to the plain
+    version in ``pool``'s worker process (~10 s on one CPU core), which
+    runs while the other kernels are timed."""
+    from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
+    from silent_speech_tpu_torch.ops.filtfilt_study import (corpus_group,
+                                                            extremes)
+
+    x, lengths, coeffs = corpus_group(SEED)
+    out = filtfilt_chain(x, lengths, coeffs)
+    _, x2, len2 = extremes(x, lengths)
+    return x, lengths, coeffs, out, pool.submit(_plain_chain, x2, len2,
+                                                coeffs)
+
+
+def time_filtfilt(card, path_launches, corpus_inputs, errs, build_s,
+                  stream_latency, group):
+    """Phase 8, the filter chain at the shape of phase 7's corpus build
+    (its own inputs) and at S-corpus (``start_corpus_group``'s ``group``):
+    ms a launch against the bounds and the plain version (at S-corpus on
+    its shortest and longest utterance, sliced out), and ns a step of the
+    dependent chain. Returns its kernels JSON entry."""
+    import torch
     from silent_speech_tpu_torch.ops.filtfilt import (filtfilt_chain,
                                                       filtfilt_chain_plain)
+    from silent_speech_tpu_torch.ops.filtfilt_study import sliced_check
 
     x, lengths, coeffs = corpus_inputs
     b, t_pad, c = x.shape
@@ -3647,26 +3750,45 @@ def time_filtfilt(card, path_launches, corpus_inputs, errs, build_s,
         raise AssertionError("filtfilt_chain disagrees with its plain "
                              "version at the corpus build's shape")
     lens = lengths.tolist()
-    # each valid input sample read once, the padded output written once;
-    # a step of a filter with nd delays: 2 + 4·nd operations, 2 passes of
-    # L + 2p steps a column
-    nbytes = 4 * c * sum(lens) + 4 * b * t_pad * c + 4 * b
-    ops = sum(c * 2 * (n + 2 * padlen(bb, aa)) * (2 + 4 * (len(bb) - 1))
-              for n in lens for bb, aa in coeffs)
-    bound_ms, bound_by = _bound(nbytes, ops, "float32")
-    steps = sum(2 * (max(lens) + 2 * padlen(bb, aa)) for bb, aa in coeffs)
+    bd = filtfilt_bounds(lens, t_pad, c, coeffs)
+    steps = bd["chain_steps"]
     ns_step = ms * 1e6 / steps
-    lat_ms = latency_bound_ms(steps, FILT_DEP_OPS)
     log(f"[time] {card} | filtfilt_chain {len(coeffs)} filters B={b} "
         f"T_pad={t_pad} C={c} (phase 7's corpus build, lengths "
         f"{min(lens)}..{max(lens)}): kernel {ms:.4f} ms/launch, plain "
         f"{plain_ms:.2f} ms (CPU tensors, torch.equal to the kernel), "
-        f"bound {bound_ms:.5f} ms ({bound_by}), "
-        f"{bound_ms / ms:.2%} of bound; the dependent chain of the longest "
-        f"column: {steps} steps, {ns_step:.2f} ns a step; latency bound "
-        f"{fmt_ms(lat_ms)} ({steps} steps x {FILT_DEP_OPS} dependent FP32 "
-        f"operations x {DEP_CYCLES} cycles at the maximum SM clock "
-        f"{max_sm_clock_hz()} Hz)")
+        f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']}), "
+        f"{bd['bound_ms'] / ms:.2%} of bound; the dependent chain of the "
+        f"longest column: {steps} steps, {ns_step:.2f} ns a step; latency "
+        f"bound {fmt_ms(bd['latency_bound_ms'])} ({steps} steps x "
+        f"{FILT_DEP_OPS} dependent FP32 operations x {DEP_CYCLES} cycles at "
+        f"the maximum SM clock {max_sm_clock_hz()} Hz)")
+
+    # S-corpus: a group of the size _groups forms on a real corpus
+    xg, lg, cg, outg, plain = group
+    bg, tg, cc = xg.shape
+    ms_g = cuda_time_ms(lambda: filtfilt_chain(xg, lg, cg), iters=3,
+                        warmup=1)
+    ref, plain_s = plain.result()
+    held = sliced_check(xg, lg, cg, outg, ref)
+    held["plain_s"] = plain_s
+    del xg, outg
+    torch.cuda.empty_cache()
+    bg_d = filtfilt_bounds(lg.tolist(), tg, cc, cg)
+    ns_g = ms_g * 1e6 / bg_d["chain_steps"]
+    log(f"[time] {card} | filtfilt_chain {len(cg)} filters B={bg} "
+        f"T_pad={tg} C={cc} (S-corpus, lengths {int(lg.min())}.."
+        f"{int(lg.max())} from seed {SEED}): kernel {ms_g:.4f} ms/launch, "
+        f"bound {bg_d['bound_ms']:.5f} ms ({bg_d['bound_by']}); the "
+        f"longest column's chain {bg_d['chain_steps']} steps, {ns_g:.2f} ns "
+        f"a step, latency bound {fmt_ms(bg_d['latency_bound_ms'])}; the "
+        f"scratch's traffic alone {bg_d['scratch_stream_ms']:.4f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; utterances {held['utterances']} "
+        f"(lengths {held['lengths']}) torch.equal to the plain version "
+        f"{held['equal']} (CPU, {held['plain_s']:.2f} s in a worker process)")
+    if not held["equal"]:
+        raise AssertionError("filtfilt_chain disagrees with its plain "
+                             "version at S-corpus")
     by_path = {path: counts["filtfilt_chain"]
                for path, counts in path_launches.items()}
     return {"name": "filtfilt_chain", "route": "cuda",
@@ -3677,10 +3799,16 @@ def time_filtfilt(card, path_launches, corpus_inputs, errs, build_s,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err, "max_abs_err_phase2": errs["filtfilt_chain"],
             "ms": ms, "plain_ms": plain_ms, "plain_on": "cpu",
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "latency_bound_ms": lat_ms, "chain_steps": steps,
-            "ns_per_step": ns_step, "corpus_build_s": build_s,
-            "streaming_recompute_ms": stream_latency}
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "library_ms": None, "latency_bound_ms": bd["latency_bound_ms"],
+            "chain_steps": steps, "ns_per_step": ns_step,
+            "corpus_build_s": build_s,
+            "streaming_recompute_ms": stream_latency,
+            "corpus": {"shape": f"B={bg} T_pad={tg} C={cc} f32, lengths "
+                                f"{int(lg.min())}..{int(lg.max())}",
+                       "ms": ms_g, "ns_per_step": ns_g,
+                       "max_abs_err": held["max_abs_err"],
+                       "plain_utterances": held["lengths"], **bg_d}}
 
 
 def host_self_ms(fn) -> dict:
@@ -3819,8 +3947,9 @@ def mesh_run(card):
     for k in ("rel_attention_fwd", "rel_attention_bwd", "dtw_align", "ctc"):
         if not dry_launches[k]:
             raise AssertionError(f"the dry run launched no {k}")
-    mesh_launches = {k: step_launches[k] + dry_launches[k]
-                     for k in step_launches}
+    mesh_launches = launch_counts()
+    mesh_launches.add(step_launches)
+    mesh_launches.add(dry_launches)
 
     forward, args = entry()
     reset_launches()
@@ -3968,6 +4097,13 @@ def main() -> int:
             disk_run(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    x, lengths, coeffs = corpus_inputs
+    torch.save([x.cpu(), lengths.cpu(), [(torch.from_numpy(np.asarray(b)),
+                                          torch.from_numpy(np.asarray(a)))
+                                         for b, a in coeffs]],
+               FILTER_INPUTS)
+    log(f"[disk] the corpus build's filter inputs saved to {FILTER_INPUTS} "
+        f"(read by python -m silent_speech_tpu_torch.ops.filtfilt_study)")
     lap("disk")
 
     # 7b. record, clean, featurize and serve a session --------------------
@@ -3995,10 +4131,15 @@ def main() -> int:
         "serve_int8": int8_launches, "capture": capture_launches,
         "mesh": mesh_launches, "entry": entry_launches,
         **disk_vocoder_launches}
-    kernels = time_kernels(card, path_launches, errs, dtw_inputs,
-                           aligned_inputs, rec_ctc)
-    kernels.append(time_filtfilt(card, path_launches, corpus_inputs, errs,
-                                 build_s, stream_latency))
+    # S-corpus's plain check runs in a worker process meanwhile
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        group = start_corpus_group(pool)
+        kernels = time_kernels(card, path_launches, errs, dtw_inputs,
+                               aligned_inputs, rec_ctc)
+        kernels.append(time_filtfilt(card, path_launches, corpus_inputs,
+                                     errs, build_s, stream_latency, group))
+    del group
     lap("timings")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the card was "
         f"found; wall seconds by phase {laps}")

@@ -34,8 +34,11 @@
 // over n in ascending order, one thread per (t, k) cell and a CTA per 32
 // frames of a row (a CTA per frame made 65,536 small CTAs at a
 // micro-step), with no atomics, so the gradient is bit-equal between
-// calls. Frames t >= utt_len and
-// rows with L = 0 get an exact 0.
+// calls. Frames t >= utt_len get an exact 0. A row with L = 0 has the NLL
+// -sum_t lp[t, blank] (phi[0] only ever adds the blank), so its gradient
+// is -g_nll at the blank of each frame t < utt_len and 0 elsewhere, as
+// jax.grad of optax.ctc_loss gives it; the backward recursion has no
+// state to walk for such a row, and the last kernel writes it directly.
 //
 // What bounds it on the card. The function reads each (t, label) log-prob
 // it needs once and writes the (U, T, K) gradient: at the recognition
@@ -252,7 +255,7 @@ __global__ void ctc_bwd_kernel(const float* __restrict__ lp,
   const int u = blockIdx.x, n = threadIdx.x, lane = n & 31, w = n >> 5;
   const int len = min(max(utt_len[u], 0), T);
   const int L = min(max(text_len[u], 0), S);
-  if (L == 0) return;  // the whole CTA: the grad kernel writes zeros
+  if (L == 0) return;  // the whole CTA: the grad kernel needs no state
   const int P = L + 1, nw = (L + 32) >> 5;
   const size_t stride = (size_t)S + 1;
   const float* hp = h_phi + (size_t)u * (T + 1) * stride;
@@ -368,8 +371,12 @@ __global__ void ctc_grad_kernel(const int* __restrict__ utt_len,
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
     const int t = t0 + i / K, k = i - (i / K) * K;
     float* out = grad + ((size_t)u * T + t) * K + k;
-    if (t >= len || L == 0) {
+    if (t >= len) {
       *out = 0.f;
+      continue;
+    }
+    if (L == 0) {  // -sum_t lp[t, blank]: d/d lp[t, blank] = -1
+      *out = k == blank ? -g_nll[u] : 0.f;
       continue;
     }
     const size_t o = ((size_t)u * T + t) * ((size_t)S + 1);

@@ -28,7 +28,9 @@ frames of log-probs ``lp``:
   the loss ``-phi[L]``.
 
 An infeasible target (more labels than the frames can emit) is therefore
-finite, ~1e5, where textbook CTC gives ``inf``. The gradient is JAX's
+finite, ~1e5, where textbook CTC gives ``inf``. A row with frames and no
+labels has the NLL ``−Σ_t lp[t, blank]`` (only ``phi[0]`` is read), and
+its gradient is −1 at each live frame's blank, on every route. The gradient is JAX's
 autodiff through that lattice: each ``lae``'s cotangents are
 ``g · exp(x - out)`` (``jax._src.lax.other._logaddexp_jvp``), which
 ``_LogAddExp`` copies, so that at the ~1e5 scale of an infeasible loss
@@ -152,8 +154,11 @@ def ctc_grad_plain(lp: torch.Tensor, utt_len: torch.Tensor,
     """d NLL / d lp, (U, T, K), by the kernel's explicit backward: the
     reverse of each frame's step on the cotangents of (phi, emit), from
     the stored per-frame states, then each position's occupancy summed
-    into its label's column (the blank's from every position). Rows
-    without labels and frames past ``utt_len`` are exactly 0."""
+    into its label's column (the blank's from every position). Frames
+    past ``utt_len`` are exactly 0; a row without labels, whose NLL is
+    −Σ_t lp[t, blank], gets −1 at each live frame's blank (its cotangent
+    stays at position 0, whose occupancy is the blank's), as ``jax.grad``
+    of optax's loss gives it."""
     utt_len, labels, text_len = _inputs(lp, utt_len, labels, text_len)
     u, t_max, _ = lp.shape
     s = labels.shape[1]
@@ -199,7 +204,7 @@ def ctc_grad_plain(lp: torch.Tensor, utt_len: torch.Tensor,
     grad = torch.zeros_like(lp)
     grad.scatter_add_(2, labels[:, None, :].expand(u, t_max, s), occ_emit)
     grad[..., blank] += occ_blank.sum(-1)
-    return torch.where((text_len > 0)[:, None, None], -grad, 0.0)
+    return -grad
 
 
 def _check(lp, utt_len, labels, text_len, blank):

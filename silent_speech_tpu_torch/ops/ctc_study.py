@@ -11,9 +11,10 @@ built with the port's nvcc flags into ``build/ctc_study/``. On the inputs
 of a recognition micro-step that ``chip_smoke.py`` saves
 (``build/ctc_micro_step_inputs.pt``, ``--inputs``) and on edge shapes, the
 port's kernel must give the other's NLL and gradient (``torch.equal``
-reported) and the plain version's within the card tests' tolerances on
-rows with labels; then each side's forward and backward (the C entries
-alone, CUDA events) are timed in turns, other, port, port, other.
+reported; on the rows with labels too) and the plain version's within
+the card tests' tolerances; then each side's forward and backward (the C
+entries alone, CUDA events) are timed in turns, other, port, port,
+other.
 
 ``--ablate`` times variants of the ``--against`` source, each a text edit
 that must apply to it (they fit the first design of the kernel): (a) the
@@ -204,9 +205,10 @@ def _rows(seed, t, s, rows):
 
 
 def compare(name, other, lp, utt_len, labels, text_len) -> dict:
-    """The port's NLL and gradient against ``other``'s (torch.equal), the
-    plain version's (rows with labels; a row without labels has an exact 0
-    gradient by contract, as ctc_grad_plain) and a second call's."""
+    """The port's NLL and gradient against ``other``'s (torch.equal, and
+    on the rows with labels alone: an older kernel gave a row without
+    labels a zero gradient), the plain version's (autograd and the
+    ``ctc_grad_plain`` mirror, every row) and a second call's."""
     ul, lab, tl = _inputs(lp, utt_len, labels, text_len, torch.int32)
     g = torch.rand(lp.shape[0], device=lp.device,
                    generator=torch.Generator(lp.device).manual_seed(5))
@@ -223,19 +225,21 @@ def compare(name, other, lp, utt_len, labels, text_len) -> dict:
     ref = ctc_nll_plain(x, utt_len, labels, text_len, BLANK)
     (ref * g).sum().backward()
     torch.cuda.synchronize()
-    (nll, grad), text = runs[0], text_len > 0
-    tol = GRAD_RTOL * float(x.grad[text].abs().max())
+    (nll, grad), text = runs[0], tl > 0
+    tol = GRAD_RTOL * float(x.grad.abs().max())
     mirror = ctc_grad_plain(lp, utt_len, labels, text_len, BLANK) * g[
         :, None, None]
     out = {"case": name, "shape": list(lp.shape) + [labels.shape[1]],
            "nll_equal_other": torch.equal(nll, o_nll),
            "grad_equal_other": torch.equal(grad, o_grad),
+           "grad_equal_other_rows_with_labels": torch.equal(grad[text],
+                                                            o_grad[text]),
            "repeat_equal": (torch.equal(nll, runs[1][0])
                             and torch.equal(grad, runs[1][1])),
            "nll_rel_plain": float(((nll - ref.detach()).abs()
                                    / ref.detach().abs().clamp_min(1e-30))
                                   .max()),
-           "grad_err_plain": float((grad[text] - x.grad[text]).abs().max()),
+           "grad_err_plain": float((grad - x.grad).abs().max()),
            "grad_err_mirror": float((grad - mirror).abs().max()),
            "grad_tol": tol}
     out["ok"] = (out["repeat_equal"] and out["nll_rel_plain"] <= NLL_RTOL

@@ -11,7 +11,10 @@ forward and reverse with its odd extension, to each column's own length,
 and the rows past it come out as 0.
 
 CUDA tensors launch ``csrc/filtfilt.cu``: the whole chain in one launch,
-one thread per (utterance, channel) column, bit-equal to the plain version
+one lane per (utterance, channel) column and 32 columns a CTA, whose
+recurrence reads and writes a ring of tiles in shared memory that
+producer warps fill ahead of it (cp.async) and drain warps empty into a
+(B, T_pad + 2P, C) scratch between passes; bit-equal to the plain version
 (explicit roundings, the same order). CPU tensors take
 ``filtfilt_chain_plain``, which runs ``dsp/device_filters``'
 ``filtfilt_masked_plain`` filter after filter on every column at once.
@@ -42,6 +45,18 @@ def chain_padlen(coeffs: Chain) -> int:
     return max(padlen(b, a) for b, a in coeffs)
 
 
+def _key(coeffs: Chain) -> tuple:
+    """The chain as nested tuples of floats: what a launch derives from it
+    (float64 normalizations and solves, ~1 ms on the host) is cached."""
+    return tuple((tuple(np.ravel(b).tolist()), tuple(np.ravel(a).tolist()))
+                 for b, a in coeffs)
+
+
+@functools.lru_cache(maxsize=32)
+def _padlen(key: tuple) -> int:
+    return chain_padlen(key)
+
+
 def _check(x: torch.Tensor, lengths: torch.Tensor, coeffs: Chain
            ) -> torch.Tensor:
     """Validate the inputs; returns the lengths on the host as int32."""
@@ -56,7 +71,7 @@ def _check(x: torch.Tensor, lengths: torch.Tensor, coeffs: Chain
     if host.shape[0] != x.shape[0]:
         raise ValueError(f"lengths must be ({x.shape[0]},), got "
                          f"{tuple(lengths.shape)}")
-    p = chain_padlen(coeffs)
+    p = _padlen(_key(coeffs))
     if host.numel() and (int(host.min()) <= p
                          or int(host.max()) > x.shape[1]):
         raise ValueError(
@@ -99,6 +114,11 @@ def filtfilt_chain(x: torch.Tensor, lengths: torch.Tensor,
 filtfilt_chain.launches = 0
 
 
+@functools.lru_cache(maxsize=32)
+def _kernel_table(key: tuple) -> Tuple[np.ndarray, np.ndarray]:
+    return _table(key)
+
+
 def _table(coeffs: Chain) -> Tuple[np.ndarray, np.ndarray]:
     """The kernel's coefficient table: delays a filter, and per filter
     b[4], a[4], zi[3] in float32 (unused taps 0)."""
@@ -120,11 +140,12 @@ def _table(coeffs: Chain) -> Tuple[np.ndarray, np.ndarray]:
 def _launch(x: torch.Tensor, lengths: torch.Tensor, coeffs: Chain
             ) -> torch.Tensor:
     b_, t_pad, c = x.shape
-    nd, coef = _table(coeffs)
+    key = _key(coeffs)
+    nd, coef = _kernel_table(key)
     lib = _library()
-    rows = t_pad + 2 * chain_padlen(coeffs)
+    rows = t_pad + 2 * _padlen(key)
     out = torch.empty_like(x)
-    scratch = torch.empty((rows, b_ * c), dtype=torch.float32,
+    scratch = torch.empty((b_, rows, c), dtype=torch.float32,
                           device=x.device)
     dev_len = lengths.to(x.device, non_blocking=True)
     with torch.cuda.device(x.device):

@@ -242,6 +242,8 @@ def _launch_fwd(q, k, v, rel_emb, max_dist, valid_len, seed,
                 else lib.rel_attention_fwd_smem_bytes(dh, max_dist))
         _raise_launch_error(name, lib, err, smem)
     rel_attention.launches += 1
+    if not bf16:
+        rel_attention.f32_launches += 1
     return out
 
 
@@ -298,10 +300,12 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _raise_launch_error("rel_attention_bwd", lib, err,
                             lib.rel_attention_bwd_smem_bytes(dh, max_dist))
     rel_attention_bwd.launches += 1
+    rel_attention_bwd.f32_launches += 1
     return dq, dk, dv, de
 
 
 rel_attention_bwd.launches = 0  # backward calls since the last reset
+rel_attention_bwd.f32_launches = 0  # of them, on the f32 route
 
 STAGES = ("scores", "dkdv", "dq", "de")   # the bf16 backward's stages A-D
 
@@ -408,6 +412,7 @@ def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 rel_attention.launches = 0  # forward kernel launches since the last reset
+rel_attention.f32_launches = 0  # of them, on the f32 route
 
 
 @functools.cache

@@ -130,9 +130,11 @@ def test_an_impossible_alignment_gives_jax_s_finite_loss():
 NLL_RTOL = 1e-6
 
 
-def _lattice_case(seed, repeat=False, last_zero=False, infeasible=False):
+def _lattice_case(seed, repeat=False, last_zero=False, infeasible=False,
+                  no_labels=False):
     """(U=5, T=30, K=38) logits, per-row frame and label counts (the last
-    row a padding row: no frames, no labels) and labels padded with −1."""
+    row a padding row: no frames, no labels) and labels padded with −1.
+    With ``no_labels``, row 3 keeps its frames and has no labels."""
     rng = np.random.default_rng(seed)
     u, t, s = 5, 30, 12
     logits = (rng.normal(size=(u, t, BLANK + 1)) * 2).astype(np.float32)
@@ -152,6 +154,9 @@ def _lattice_case(seed, repeat=False, last_zero=False, infeasible=False):
         utt_len[2], text_len[2] = 4, 5
         labels[2] = -1
         labels[2, :5] = [1, 2, 3, 4, 5]
+    if no_labels:
+        text_len[3] = 0
+        labels[3] = -1
     return logits, utt_len, labels, text_len
 
 
@@ -184,7 +189,8 @@ def _port_nll(logits, utt_len, labels, text_len):
 
 LATTICE_CASES = {"plain": {}, "repeat_and_last_zero": dict(
     repeat=True, last_zero=True), "infeasible": dict(infeasible=True),
-    "all": dict(repeat=True, last_zero=True, infeasible=True)}
+    "all": dict(repeat=True, last_zero=True, infeasible=True),
+    "no_labels": dict(no_labels=True)}
 
 
 @pytest.mark.parametrize("case", list(LATTICE_CASES))
@@ -214,15 +220,50 @@ def test_the_kernel_s_backward_recursion_matches_autograd(case):
     args = (torch.from_numpy(utt_len), torch.from_numpy(labels),
             torch.from_numpy(text_len))
     x = lp.clone().requires_grad_()
-    (ctc_nll_plain(x, *args, BLANK)
-     * torch.from_numpy(text_len > 0)).sum().backward()
+    ctc_nll_plain(x, *args, BLANK).sum().backward()
     mirror = ctc_grad_plain(lp, *args, BLANK)
     scale = x.grad.abs().max().item()
     assert (mirror - x.grad).abs().max().item() <= 1e-6 * scale
-    # frames past a row's length and rows without labels: exact zeros
+    # frames past a row's length: exact zeros; a row without labels (NLL
+    # −Σ_t lp[t, blank]): exactly −1 at each live frame's blank, 0 elsewhere
     for i in range(len(utt_len)):
         assert not mirror[i, utt_len[i]:].any()
-    assert not mirror[text_len == 0].any()
+        if text_len[i] == 0:
+            live = mirror[i, :utt_len[i]]
+            assert (live[:, BLANK] == -1).all()
+            assert not live[:, :BLANK].any()
+
+
+def test_the_kernel_s_backward_of_rows_without_labels_matches_jax():
+    # rows with frames and no labels beside rows with labels, each row
+    # weighted: ctc_grad_plain, taken through the log-softmax by autograd,
+    # against jax.grad of the weighted sum of optax's loss at the logits
+    logits, utt_len, labels, text_len = _lattice_case(9, no_labels=True)
+    text_len[1], labels[1] = 0, -1
+    assert (utt_len[[1, 3]] > 0).all() and (text_len[[1, 3]] == 0).all()
+    weights = np.random.default_rng(10).uniform(
+        0.5, 2.0, size=len(utt_len)).astype(np.float32)
+    t, s = logits.shape[1], labels.shape[1]
+
+    def weighted(x):
+        pad = (jnp.arange(t)[None] >= utt_len[:, None]).astype(jnp.float32)
+        lpad = (jnp.arange(s)[None] >= text_len[:, None]).astype(
+            jnp.float32)
+        return jnp.sum(weights * optax.ctc_loss(
+            jax.nn.log_softmax(x), pad, jnp.maximum(labels, 0), lpad,
+            blank_id=BLANK))
+
+    ref_grad = np.asarray(jax.grad(weighted)(jnp.asarray(logits)))
+    x = torch.from_numpy(logits).requires_grad_()
+    lp = torch.log_softmax(x, -1)
+    mirror = ctc_grad_plain(lp.detach(), torch.from_numpy(utt_len),
+                            torch.from_numpy(labels),
+                            torch.from_numpy(text_len), BLANK)
+    lp.backward(mirror * torch.from_numpy(weights)[:, None, None])
+    grad = x.grad.numpy()
+    np.testing.assert_allclose(grad, ref_grad, rtol=0,
+                               atol=GRAD_ATOL * np.abs(ref_grad).max())
+    assert np.abs(ref_grad[[1, 3]]).max() > 0.5    # the rows carry weight
 
 
 def test_ctc_nll_checks_its_inputs():

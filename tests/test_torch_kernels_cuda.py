@@ -556,7 +556,7 @@ def test_ctc_kernel_matches_plain(card, case):
     utt_len, text_len = args[1], args[3]
     for i in range(len(utt_len)):   # exact zeros past a row's frames
         assert not grad[i, int(utt_len[i]):].any()
-    assert not grad[text_len == 0].any()
+    assert not grad[text_len == 0].any()   # padding rows: no frames either
 
 
 def test_ctc_kernel_is_bit_equal_between_calls(card):
@@ -588,18 +588,19 @@ def _ctc_matches_plain_and_repeats(args):
     torch.cuda.synchronize()
     ref, ref_grad = _ctc_run(ctc_nll_plain, *args, weights)
     torch.testing.assert_close(nll, ref, rtol=CTC_NLL_RTOL, atol=0)
-    # the gradient of rows with labels; a row without labels gets an exact
-    # 0 by the kernel's contract (ctc_grad_plain's too), where autograd
-    # through the plain lattice gives -weight at each frame's blank
-    # (ROADMAP fault 16; the recognition loss gives such rows no weight)
-    text = args[3] > 0
-    tol = CTC_GRAD_RTOL * float(ref_grad[text].abs().max())
-    torch.testing.assert_close(grad[text], ref_grad[text], rtol=0, atol=tol)
+    # the gradient of every row against autograd through the plain lattice;
+    # a row without labels (NLL −Σ_t lp[t, blank]) gets −weight at each
+    # live frame's blank and 0 elsewhere
+    tol = CTC_GRAD_RTOL * float(ref_grad.abs().max())
+    torch.testing.assert_close(grad, ref_grad, rtol=0, atol=tol)
     assert torch.equal(nll, again[0]) and torch.equal(grad, again[1])
     utt_len, text_len = args[1], args[3]
     for i in range(len(utt_len)):   # exact zeros past a row's frames
         assert not grad[i, int(utt_len[i]):].any()
-    assert not grad[text_len == 0].any()
+        if text_len[i] == 0:
+            live = grad[i, :int(utt_len[i])]
+            assert torch.equal(live[:, 37], -weights[i].expand(len(live)))
+            assert not live[:, :37].any()
     torch.testing.assert_close(grad, ctc_grad_plain(*args, 37) * weights[
         :, None, None], rtol=0, atol=tol)
 
@@ -636,6 +637,14 @@ def test_ctc_kernel_at_the_label_limit(card):
     _ctc_matches_plain_and_repeats(_ctc_rows(
         8, 40, MAX_LABELS, [(MAX_LABELS, 40), (1000, 33), (0, 40),
                             (13, 40)]))
+
+
+@pytest.mark.parametrize("frames", [1, 37, 200])
+def test_ctc_kernel_gradient_of_rows_without_labels(card, frames):
+    # rows with frames and no labels, beside a row with labels: the
+    # kernel's gradient against autograd through the plain lattice
+    _ctc_matches_plain_and_repeats(_ctc_rows(
+        11, 200, 32, [(0, frames), (12, 200), (0, 200), (0, 0)]))
 
 
 def test_ctc_kernel_gives_nan_for_a_label_outside_the_classes(card):
@@ -808,6 +817,73 @@ def test_filter_chain_kernel_does_not_depend_on_the_grouping(card):
     assert torch.equal(whole, split)
     assert torch.equal(whole[3, :777], alone[0])
     assert torch.equal(whole, again)
+
+
+@pytest.mark.parametrize("taps", [2, 3, 4])
+def test_filter_kernel_of_each_width_with_columns_across_ctas(card, taps):
+    # one filter (its forward pass reads x, its reverse pass writes out),
+    # C = 3 so that utterances straddle the CTAs of 32 columns
+    from scipy.signal import butter
+
+    from silent_speech_tpu_torch.ops.filtfilt import (filtfilt_chain,
+                                                      filtfilt_chain_plain)
+
+    b, a = butter(taps - 1, 0.1, btype="highpass")
+    coeffs = ((b, a),)
+    lengths = [3 * taps + 1, 300, 129, 64, 65, 3 * taps + 2, 250, 299, 31,
+               200, 17 + 3 * taps, 128]
+    rng = np.random.default_rng(taps)
+    x = np.zeros((len(lengths), 300, 3), np.float32)
+    for u, n in enumerate(lengths):
+        x[u, :n] = rng.normal(size=(n, 3)) * 100
+    x = torch.from_numpy(x)
+    lengths = torch.tensor(lengths)
+    out = filtfilt_chain(x.cuda(), lengths, coeffs)
+    assert torch.equal(out.cpu(), filtfilt_chain_plain(x, lengths, coeffs))
+
+
+@pytest.mark.parametrize("channels", [1, 4, 8, 12, 16, 32])
+def test_filter_chain_kernel_on_each_route(card, channels):
+    # the launcher's two ways of moving data: 4 channels a lane (C % 4 ==
+    # 0; at C = 12 utterances straddle the CTAs of 32 columns) and a float
+    # a lane (C = 1); ragged lengths over several tiles
+    from silent_speech_tpu_torch.dsp.device_pipeline import filter_coeffs
+    from silent_speech_tpu_torch.ops.filtfilt import (filtfilt_chain,
+                                                      filtfilt_chain_plain)
+
+    coeffs = filter_coeffs()
+    lengths = [13, 700, 65, 400, 191, 97, 640, 699, 14]
+    rng = np.random.default_rng(channels)
+    x = np.zeros((len(lengths), 700, channels), np.float32)
+    for u, n in enumerate(lengths):
+        x[u, :n] = rng.normal(size=(n, channels)) * 100
+    x = torch.from_numpy(x)
+    lengths = torch.tensor(lengths)
+    out = filtfilt_chain(x.cuda(), lengths, coeffs)
+    assert torch.equal(out.cpu(), filtfilt_chain_plain(x, lengths, coeffs))
+
+
+def test_filter_chain_kernel_at_a_corpus_group(card):
+    # S-corpus: 512 utterances of 6,000..16,384 samples, one 256 MiB group
+    # of a real corpus; the shortest and the longest utterance against the
+    # plain version (exact, since a column never reads another), halves
+    # launched apart against the whole, two calls
+    from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
+    from silent_speech_tpu_torch.ops.filtfilt_study import (corpus_group,
+                                                            sliced_check)
+
+    x, lengths, coeffs = corpus_group(0)
+    before = filtfilt_chain.launches
+    whole = filtfilt_chain(x, lengths, coeffs)
+    torch.cuda.synchronize()
+    assert filtfilt_chain.launches == before + 1
+    assert sliced_check(x, lengths, coeffs, whole)["equal"]
+    half = len(lengths) // 2
+    assert torch.equal(whole[:half], filtfilt_chain(x[:half], lengths[:half],
+                                                    coeffs))
+    assert torch.equal(whole[half:], filtfilt_chain(x[half:], lengths[half:],
+                                                    coeffs))
+    assert torch.equal(whole, filtfilt_chain(x, lengths, coeffs))
 
 
 def test_a_cuda_tensor_never_reaches_the_plain_filter(card, monkeypatch):
