@@ -15,8 +15,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    shapes and the training shapes with dropout, the recognition
    micro-step's B=64 among them; two bf16 calls at the transduction
    training shape must be bit-equal), the attention backward (bf16 and
-   f32, dropout off and on, also at B=64; bf16 runs four staged WMMA kernels, f32 one
-   kernel and a fixed-order sum of its partials; two calls at the training
+   f32, dropout off and on, also at B=64; each dtype runs four staged
+   kernels, bf16 on the tensor cores (WMMA), f32 on the CUDA cores with
+   register-tiled FP32 products and f32 scratch; two calls at the training
    shape must be bit-equal in each dtype) and the DTW alignment with its
    DP-only mode (prof_dtw's shape with the n ∈ {1, 2} edge cases, T2 =
    1001 and integer costs with many exact ties; bf16 and f32) and the
@@ -73,7 +74,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (the step runs under cuDNN's deterministic algorithms), and the step
    with cuDNN's default algorithms is timed against it in turns. Then one
    f32 step with the kernels against the same step with the plain
-   versions swapped in (same seeds, so the same dropout masks);
+   versions swapped in (same seeds, so the same dropout masks), and the
+   ``--compute_dtype float32`` path timed: one warm-up step and 3 steps
+   (ms a step), their launches counted (6 K1f and 6 K1b a step on the f32
+   routes: the kernels line's ``f32-train`` path), then one step under the
+   profiler (K1b f32's device ms in it);
 5. the training run: the bench's device corpus of 4 example sets on the
    card (``silent_speech_tpu_torch/bench.py``), one batch gathered there
    held bit-equal to the upload of the same batch packed on the host, the
@@ -187,7 +192,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    DP-only mode also in ns a diagonal and with its backtrace's share, both
    DTW modes also by device time per launch, the DTW also at
    get_aligned_prediction's K=1 f32 shape, both attention kernels also at
-   the recognition micro-step's B=64 and in f32, and PyTorch's
+   the recognition micro-step's B=64 and in f32, the f32 backward also
+   stage by stage and against its own bound, and PyTorch's
    scaled_dot_product_attention with the relative bias precomputed as a
    yardstick for the bf16 forward, not the same function and never
    called by the port), the CTC forward and backward on a recognition
@@ -245,9 +251,10 @@ TRAIN_BT = (120, 200)              # attention (B, T) of the training step
 REC_BT = (64, 200)
 DROP_CASES = ((4, 200), TRAIN_BT, REC_BT, (1, 1024))  # (B, T), L = T
 # backward vs autograd through the plain version, relative to each
-# gradient's largest entry: f32 sums in another order (dK, dV, dE as
-# per-tile partials summed in a fixed order); bf16 rounds P', dS and dR to
-# bf16 where the JAX kernel does, and each output once
+# gradient's largest entry: f32 sums in another order (D, the band
+# products by slices, dE as group partials summed in a fixed order); bf16
+# rounds P', dS and dR to bf16 where the JAX kernel does, and each output
+# once
 BWD_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
 HEADLINE_T = 1024
 FWD_KERNEL = "::fwd_kernel("    # csrc/rel_attention_fwd_wmma.cu in a trace
@@ -270,6 +277,8 @@ TRIAL_STEPS = (4, 3, 3)            # 10 timed steps in 3 synced trials
 # slightly different costs)
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3
+F32_TIMED_STEPS = 3                # the float32 path's steps, after a warm-up
+F32_BWD_KERNEL = "bwd_f32_"        # csrc/rel_attention_bwd.cu in a trace
 COMPARED_GRADS = ("conv_blocks.0.conv1.weight",
                   "transformer.layers.0.self_attn.w_q",
                   "transformer.layers.5.self_attn.relative_positional"
@@ -1744,11 +1753,69 @@ def train(card):
             f"{'ok' if err <= tol else 'FAIL'}")
         if not err <= tol:
             raise AssertionError(f"gradient of {name} disagrees")
+    f32_launches, f32_step = f32_train(card, batch, cfg.learning_rate)
     log(f"[time] {card} | train step bf16 full width: "
         f"{np.round(trials, 3).tolist()} steps/s over trials of "
         f"{list(TRIAL_STEPS)} steps, median {float(np.median(trials)):.3f} "
         f"steps/s")
-    return launches, trials, (costs, n1, n2)
+    return launches, trials, (costs, n1, n2), f32_launches, f32_step
+
+
+def f32_train(card, batch, lr):
+    """Phase 4's float32 path (``--compute_dtype float32``) at full width,
+    through the kernels: one warm-up step, then ``F32_TIMED_STEPS`` steps
+    timed by the host clock around synchronized work with the counts
+    zeroed just before and read just after (6 K1f and 6 K1b a step, all on
+    the f32 routes, and the DTW), then one step under the profiler for K1b
+    f32's device time in it. Returns the timed steps' launches and the
+    step's numbers."""
+    import torch
+    from silent_speech_tpu_torch.config import ModelConfig
+    from silent_speech_tpu_torch.train.transduction import (
+        TransductionTrainer)
+
+    tr = TransductionTrainer(ModelConfig(compute_dtype="float32"))
+    tr.init_state(SEED)
+    layers = tr.model_cfg.num_layers
+    tr.train_step(batch, lr)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(F32_TIMED_STEPS):
+        out = tr.train_step(batch, lr)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / F32_TIMED_STEPS
+    launches = read_launches()
+    n = F32_TIMED_STEPS
+    expected = launch_counts(rel_attention_fwd=layers * n,
+                             rel_attention_bwd=layers * n,
+                             dtw_align=n if batch.num_silent else 0)
+    f32_expected = {"rel_attention_fwd": layers * n,
+                    "rel_attention_bwd": layers * n}
+    log(f"[train.f32] {n} float32 steps: launches {launches}, on the f32 "
+        f"routes {launches.f32} (expected {expected}, f32 {f32_expected}); "
+        f"loss {out.loss.item():.6f}")
+    if (launches != expected or launches.f32 != f32_expected
+            or not np.isfinite(out.loss.item())):
+        raise AssertionError(f"float32 training launches {launches} (f32 "
+                             f"{launches.f32}), expected {expected} (f32 "
+                             f"{f32_expected}), and a finite loss")
+    events = []
+    prof = device_profile(card, "one float32 training step (B=120 chunks x "
+                          "200)", lambda: tr.train_step(batch, lr), cpu=False,
+                          events=events)
+    k1b = [(end - start) / 1e3 for name, start, end in events
+           if F32_BWD_KERNEL in name]
+    k1b_ms = sum(k1b) if k1b else None
+    busy = prof[1] if prof else None
+    log(f"[time] {card} | train step f32 full width: {step_ms:.1f} ms a "
+        f"step over {n} steps after one warm-up; K1b f32 device time in "
+        f"one step (profiler, {len(k1b)} kernel launches of its "
+        f"{layers} calls): {fmt_ms(k1b_ms)}, of {fmt_ms(busy)} device busy")
+    del tr, out
+    torch.cuda.empty_cache()
+    return launches, {"steps": n, "step_ms": step_ms,
+                      "k1b_device_ms": k1b_ms, "device_busy_ms": busy}
 
 
 def _snapshot(trainer):
@@ -3407,7 +3474,7 @@ def time_ctc(card, rec_ctc, errs):
 
 
 def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
-                 rec_ctc):
+                 rec_ctc, f32_step):
     """Phase 8, kernels: ms per launch at the main path's shapes, against
     the bound and the plain version. Returns the kernels JSON entries."""
     import torch
@@ -3497,22 +3564,48 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
             f"dropout 0.2 (recognition micro-step): kernel {ms:.4f} "
             f"ms/launch, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
             f"({bound_by}), {bound_ms / ms:.2%} of bound")
-    del rq, rk, rv, re_, rdout, rxs, rout
+    rec32 = [x.float() for x in (rq, rk, rv, re_, rdout)]
+    rec_bwd_f32 = cuda_time_ms(lambda: rel_attention_bwd(
+        *rec32, 100, None, 3, drop), iters=5)
+    rec["rel_attention_bwd"].update(
+        ms_f32=rec_bwd_f32, bound_ms_f32=attention_bwd_bound(
+            rb, 8, rt, 96, 100, "float32")[0])
+    log(f"[time] {card} | rel_attention_bwd f32 B={rb} H=8 T={rt} d_h=96 "
+        f"m=100 dropout 0.2 (recognition micro-step under --compute_dtype "
+        f"float32): {rec_bwd_f32:.4f} ms/launch, bound "
+        f"{rec['rel_attention_bwd']['bound_ms_f32']:.5f} ms")
+    del rq, rk, rv, re_, rdout, rxs, rout, rec32
 
     q32, k32, v32, e32, dout32 = (x.float() for x in (q, k, v, e, dout))
     fwd_f32_ms = cuda_time_ms(
         lambda: rel_attention(q32, k32, v32, e32, 100, None, 3, drop),
         iters=10)
+    fwd_f32_bound = attention_bound(b, 8, t, 96, 100, t, "float32")
     log(f"[time] {card} | rel_attention_fwd f32 B={b} H=8 T={t} d_h=96 "
-        f"m=100 dropout 0.2 (csrc/rel_attention_fwd.cu, off the bf16 "
-        f"step's path): {fwd_f32_ms:.4f} ms/launch")
+        f"m=100 dropout 0.2 (csrc/rel_attention_fwd.cu, the "
+        f"--compute_dtype float32 path): {fwd_f32_ms:.4f} ms/launch, bound "
+        f"{fwd_f32_bound[0]:.5f} ms ({fwd_f32_bound[1]}), "
+        f"{fwd_f32_bound[0] / fwd_f32_ms:.2%} of bound")
     bwd_f32_ms = cuda_time_ms(
         lambda: rel_attention_bwd(q32, k32, v32, e32, dout32, 100, None, 3,
                                   drop), iters=5)
-    del q32, k32, v32, e32, dout32
+    _, stages, _ = _staged_bwd(q32, k32, v32, e32, dout32, 100, t, 3, drop)
+    stages_f32_ms = {name: cuda_time_ms(launch, iters=5)
+                     for name, launch in stages}
+    del stages
+    xs = [x.detach().requires_grad_() for x in (q32, k32, v32, e32)]
+    out = rel_attention_plain(*xs, 100, None, 3, drop)
+    bwd_f32_plain = cuda_time_ms(lambda: torch.autograd.grad(
+        out, xs, dout32, retain_graph=True), iters=3)
+    del q32, k32, v32, e32, dout32, xs, out
+    bwd_f32_bound = attention_bwd_bound(b, 8, t, 96, 100, "float32")
     log(f"[time] {card} | rel_attention_bwd f32 B={b} H=8 T={t} d_h=96 "
-        f"m=100 dropout 0.2 (kernel and fixed-order sum of its partials, "
-        f"off the bf16 step's path): {bwd_f32_ms:.4f} ms/launch")
+        f"m=100 dropout 0.2 (four staged kernels, the --compute_dtype "
+        f"float32 path): {bwd_f32_ms:.4f} ms/launch, by stage "
+        + ", ".join(f"{n} {stages_f32_ms[n]:.4f} ms" for n in STAGES)
+        + f"; plain (autograd) {bwd_f32_plain:.4f} ms, bound "
+        f"{bwd_f32_bound[0]:.5f} ms ({bwd_f32_bound[1]}), "
+        f"{bwd_f32_bound[0] / bwd_f32_ms:.2%} of bound")
     xs = [x.detach().requires_grad_() for x in (q, k, v, e)]
     out = rel_attention_plain(*xs, 100, None, 3, drop)
     bwd_plain = cuda_time_ms(lambda: torch.autograd.grad(
@@ -3614,6 +3707,7 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
          "max_abs_err_f32": errs[("rel_attention_fwd", "float32")],
          "max_err_offsets": errs[("rel_attention_offsets", "bfloat16")],
          "ms": fwd_ms, "device_ms": fwd_dev_ms, "ms_f32": fwd_f32_ms,
+         "bound_ms_f32": fwd_f32_bound[0], "bound_by_f32": fwd_f32_bound[1],
          "plain_ms": fwd_plain,
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
          "library_ms": None, "sdpa_yardstick_ms": sdpa_ms,
@@ -3630,6 +3724,9 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
          "max_abs_err_f32": errs[("rel_attention_bwd", "float32")],
          "max_err_offsets": errs[("rel_attention_offsets", "bfloat16")],
          "ms": bwd_ms, "stages_ms": stages_ms, "ms_f32": bwd_f32_ms,
+         "stages_ms_f32": stages_f32_ms, "plain_ms_f32": bwd_f32_plain,
+         "bound_ms_f32": bwd_f32_bound[0], "bound_by_f32": bwd_f32_bound[1],
+         "f32_train_step": f32_step,
          "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": None,
          "recognition": rec["rel_attention_bwd"]},
@@ -4049,7 +4146,7 @@ def main() -> int:
     lap("serve")
 
     # 4. train -------------------------------------------------------------
-    train_launches, _, dtw_inputs = train(card)
+    train_launches, _, dtw_inputs, f32_train_launches, f32_step = train(card)
     lap("train")
 
     # 5. the training run --------------------------------------------------
@@ -4123,6 +4220,7 @@ def main() -> int:
     # 8. kernel timings ----------------------------------------------------
     path_launches = {
         "serve": serve_launches, "train": train_launches,
+        "f32-train": f32_train_launches,
         "fit": fit_launches, "aligned_prediction": aligned_launches,
         "recognition_fit": rec_launches,
         "recognition_serve": rec_serve_launches,
@@ -4136,7 +4234,7 @@ def main() -> int:
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
         group = start_corpus_group(pool)
         kernels = time_kernels(card, path_launches, errs, dtw_inputs,
-                               aligned_inputs, rec_ctc)
+                               aligned_inputs, rec_ctc, f32_step)
         kernels.append(time_filtfilt(card, path_launches, corpus_inputs,
                                      errs, build_s, stream_latency, group))
     del group

@@ -1,18 +1,17 @@
-// Shared pieces of the relative-position attention kernels for Hopper
-// (rel_attention_fwd.cu, rel_attention_bwd.cu): tiling constants, staging
-// and dot-product helpers, the dropout counter hash, and the band softmax
-// that both the forward and the backward (which recomputes it) run.
+// Shared pieces of the relative-position attention kernels for Hopper: the
+// dropout counter hash, its cells and the warp reductions, which every
+// attention kernel uses, and the f32 forward's (rel_attention_fwd.cu)
+// tiling constants, staging and dot-product helpers and band softmax.
 //
-// Tiling. One CTA per (64-row query tile, head, batch). A tile only sees
-// the key band [q0 - (m-1), q0 + 63 + (m-1)]. The relative logits of the
-// tile are one product R = Q_tile . E_h^T (64 x (2m-1)); the TPU kernel's
-// barrel-shifter skew becomes the index k - q + m - 1 into R. Scores for
-// the whole band sit in shared memory in f32, so the softmax is exact.
-// All arithmetic is f32 FMA on the CUDA cores, whatever the input type.
+// Tiling of the f32 forward. One CTA per (64-row query tile, head, batch).
+// A tile only sees the key band [q0 - (m-1), q0 + 63 + (m-1)]. The
+// relative logits of the tile are one product R = Q_tile . E_h^T (64 x
+// (2m-1)); the TPU kernel's barrel-shifter skew becomes the index k - q +
+// m - 1 into R. Scores for the whole band sit in shared memory in f32, so
+// the softmax is exact. All arithmetic is f32 FMA on the CUDA cores.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -24,20 +23,6 @@ constexpr int NTHREADS = 256;   // a 16 x 16 grid of threads
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAX_DH = 128;
 constexpr float NEG = -1e8f;    // the reference's out-of-window logit
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // The counter hash of the JAX kernel's interpret mode (`_hash_bits`,
 // silent_speech_tpu/ops/pallas/rel_attention.py): row = query index,
@@ -64,16 +49,15 @@ __device__ __forceinline__ unsigned hash_bits(unsigned r, unsigned c,
 }
 
 // Copy rows [r0, r0 + rows) of a row-major (*, dh) matrix into shared
-// memory as f32 with row stride ld; rows outside [0, n_rows) read as 0.
-template <typename T>
-__device__ void stage_rows(float* dst, int ld, const T* src, int r0, int rows,
-                           int n_rows, int dh) {
+// memory with row stride ld; rows outside [0, n_rows) read as 0.
+__device__ void stage_rows(float* dst, int ld, const float* src, int r0,
+                           int rows, int n_rows, int dh) {
   for (int idx = threadIdx.x; idx < rows * dh; idx += NTHREADS) {
     const int r = idx / dh;
     const int c = idx - r * dh;
     const int g = r0 + r;
     dst[r * ld + c] =
-        (g >= 0 && g < n_rows) ? to_f32(src[(size_t)g * dh + c]) : 0.f;
+        (g >= 0 && g < n_rows) ? src[(size_t)g * dh + c] : 0.f;
   }
 }
 
@@ -113,14 +97,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Sum over the 16 threads of one row of the 16 x 16 thread grid (the two
-// halves of a warp hold two rows).
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // Geometry of one CTA's band, in floats of shared memory.
 struct Band {
   int ld;   // row stride of Q, K, V, E, dO tiles (odd: no bank conflicts)
@@ -133,8 +109,7 @@ struct Band {
 // Stage the Q tile into sQ, compute R = Q.E^T into sR, the band scores
 // into sS, and turn each row of sS into softmax probabilities (P before
 // dropout). sX is a BK x ld staging buffer. Ends with __syncthreads().
-template <typename T>
-__device__ void band_softmax(const T* qh, const T* kh, const T* eh,
+__device__ void band_softmax(const float* qh, const float* kh, const float* eh,
                              float* sQ, float* sR, float* sS, float* sX,
                              const Band& g, int q0, int k_lo, int k_hi,
                              int T_len, int dh, int m, int valid_len,

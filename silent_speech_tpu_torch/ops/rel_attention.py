@@ -26,16 +26,17 @@ quadratic is saved between the two. bfloat16 runs on the tensor cores:
 the forward is ``csrc/rel_attention_fwd_wmma.cu`` (one WMMA kernel that
 rounds P' to bf16 before ·V, where the JAX kernel rounds it), the backward
 the four staged WMMA kernels of ``csrc/rel_attention_bwd_wmma.cu``.
-float32 keeps full f32 arithmetic on the CUDA cores:
-``csrc/rel_attention_fwd.cu`` and ``csrc/rel_attention_bwd.cu``, whose dK,
-dV and dE partials are summed in a fixed order by a second kernel. Both
-backward routes are bit-equal from call to call. CPU tensors take
-``rel_attention_plain``, differentiated by autograd; nothing else selects
-the plain version, and a CUDA launch that fails raises.
+float32, the route that ``--compute_dtype float32`` trains on, keeps full
+f32 arithmetic on the CUDA cores: the forward is ``csrc/rel_attention_fwd.cu``,
+the backward the same four stages in ``csrc/rel_attention_bwd.cu`` with
+register-tiled FP32 products and f32 scratch. Both backward routes are
+bit-equal from call to call. CPU tensors take ``rel_attention_plain``,
+differentiated by autograd; nothing else selects the plain version, and a
+CUDA launch that fails raises.
 ``rel_attention_plain(store_dtype=torch.bfloat16)`` mirrors the bf16
 forward's rounding and ``rel_attention_bwd_staged_plain`` the staged
-backward's arithmetic, for the tests. What bounds each kernel on the card
-is in its source's header.
+backward's arithmetic (either route's), for the tests. What bounds each
+kernel on the card is in its source's header.
 """
 
 from __future__ import annotations
@@ -139,12 +140,13 @@ def rel_attention_bwd_staged_plain(q, k, v, rel_emb, dout, max_dist: int,
                                    return_scratch: bool = False,
                                    b_offset: int = 0, h_offset: int = 0,
                                    h_total: Optional[int] = None):
-    """The bf16 backward's four stages (``csrc/rel_attention_bwd_wmma.cu``)
-    in plain PyTorch, computed in float32: stage A's P', dS and dR, then
-    dK, dV (B), dQ (C) and dE (D) from them. With ``store_dtype``, P', dS
-    and dR are rounded to it where the kernel stores them. Returns (dQ, dK,
-    dV, dE) in the input dtypes and, with ``return_scratch``, also (P', dS,
-    dR) in float32, unpadded."""
+    """The backward's four stages (``csrc/rel_attention_bwd_wmma.cu`` in
+    bf16, ``csrc/rel_attention_bwd.cu`` in f32) in plain PyTorch, computed
+    in float32: stage A's P', dS and dR, then dK, dV (B), dQ (C) and dE (D)
+    from them. With ``store_dtype``, P', dS and dR are rounded to it where
+    the bf16 kernel stores them (None: the f32 kernel's f32 scratch).
+    Returns (dQ, dK, dV, dE) in the input dtypes and, with
+    ``return_scratch``, also (P', dS, dR) in float32, unpadded."""
     dh = q.shape[-1]
     scale = 1.0 / math.sqrt(dh)
     qf, kf, vf, ef, gf = (x.float() for x in (q, k, v, rel_emb, dout))
@@ -210,6 +212,19 @@ def _check_kernel_input(tensors, dtype) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+# stage A of the f32 backward: a 32-query tile's key band and the slots it
+# reaches fit 256 columns (``too_wide`` in ``csrc/rel_attention_bwd.cu``)
+F32_BWD_COLS = 256
+
+
+def f32_bwd_fits(t: int, max_dist: int) -> bool:
+    """Whether the f32 backward takes sequences of ``t`` frames at window
+    ``max_dist`` (every m <= 105 at any T, and every m at T <= 225)."""
+    band = min(_round16(t), _round16(32 + 2 * (max_dist - 1) + 15))
+    return (band <= F32_BWD_COLS
+            and min(2 * max_dist - 1, t + 31) <= F32_BWD_COLS)
+
+
 def _raise_launch_error(name, lib, err, smem_bytes) -> None:
     raise RuntimeError(
         f"{name} launch failed: "
@@ -256,12 +271,12 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dQ, dK, dV, dE) of ``rel_attention``'s output against
     ``dout`` (CUDA tensors only), in the input dtype.
 
-    bfloat16 runs the four staged WMMA kernels of
-    ``csrc/rel_attention_bwd_wmma.cu`` (``_staged_bwd``): bf16 scratch, no
-    atomics. float32 runs ``csrc/rel_attention_bwd.cu``: one kernel writes
-    per-query-tile f32 partials of dK, dV and dE (summed over the batch),
-    and a second sums them in a fixed order. Both routes are bit-equal
-    from call to call. A launch that fails raises."""
+    Both dtypes run four staged kernels (``_staged_bwd``) with scratch in
+    the input dtype and no atomics: bfloat16 on the tensor cores
+    (``csrc/rel_attention_bwd_wmma.cu``), float32 on the CUDA cores with
+    register-tiled FP32 products (``csrc/rel_attention_bwd.cu``; raises
+    ``ValueError`` where ``f32_bwd_fits`` is False). Both routes are
+    bit-equal from call to call. A launch that fails raises."""
     valid_len, cells = _check(q, k, v, rel_emb, max_dist, valid_len, seed,
                               drop_threshold, b_offset, h_offset, h_total)
     if q.device.type != "cuda":
@@ -272,42 +287,25 @@ def rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("dout must match q in shape, dtype and device")
     _check_kernel_input({"q": q, "k": k, "v": v, "rel_emb": rel_emb,
                          "dout": dout}, q.dtype)
-    if q.dtype == torch.bfloat16:
-        grads, stages, _ = _staged_bwd(q, k, v, rel_emb, dout, max_dist,
-                                       valid_len, seed, drop_threshold,
-                                       cells)
-        for _, launch in stages:
-            launch()
-        rel_attention_bwd.launches += 1
-        return grads
-    b, h, t, dh = q.shape
-    lib = _library("rel_attention_bwd")
-    dq, dk, dv, de = (torch.empty_like(x) for x in (q, k, v, rel_emb))
-    dims = (b, h, t, dh, max_dist)
-    dkp, dvp = (torch.empty(lib.rel_attention_bwd_partial_elems(0, *dims),
-                            dtype=torch.float32, device=q.device)
-                for _ in range(2))
-    dep = torch.empty(lib.rel_attention_bwd_partial_elems(1, *dims),
-                      dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rel_attention_bwd(
-            *(x.data_ptr() for x in (q, k, v, rel_emb, dout, dq, dk, dv, de,
-                                     dkp, dvp, dep)),
-            *dims, valid_len, 1.0 / math.sqrt(dh), seed, drop_threshold,
-            _keep_scale(drop_threshold), *cells, 0, stream)
-    if err != 0:
-        _raise_launch_error("rel_attention_bwd", lib, err,
-                            lib.rel_attention_bwd_smem_bytes(dh, max_dist))
+    f32 = q.dtype == torch.float32
+    if f32 and not f32_bwd_fits(q.shape[2], max_dist):
+        raise ValueError(f"the f32 backward takes a 32-query tile's band and "
+                         f"slots in {F32_BWD_COLS} columns: T={q.shape[2]}, "
+                         f"max_dist={max_dist} exceed them")
+    grads, stages, _ = _staged_bwd(q, k, v, rel_emb, dout, max_dist,
+                                   valid_len, seed, drop_threshold, cells)
+    for _, launch in stages:
+        launch()
     rel_attention_bwd.launches += 1
-    rel_attention_bwd.f32_launches += 1
-    return dq, dk, dv, de
+    if f32:
+        rel_attention_bwd.f32_launches += 1
+    return grads
 
 
 rel_attention_bwd.launches = 0  # backward calls since the last reset
 rel_attention_bwd.f32_launches = 0  # of them, on the f32 route
 
-STAGES = ("scores", "dkdv", "dq", "de")   # the bf16 backward's stages A-D
+STAGES = ("scores", "dkdv", "dq", "de")   # the backward's stages A-D
 
 
 def _round16(x: int) -> int:
@@ -315,21 +313,28 @@ def _round16(x: int) -> int:
 
 
 def _staged_bwd(q, k, v, rel_emb, dout, max_dist, valid_len, seed,
-                drop_threshold, cells=(0, 0, None)):
-    """Outputs, scratch and the stage launches of the bf16 backward, not
-    yet launched: ``(grads, [(stage name, launch), ...], (P', dS, dR))``.
-    Each launch runs on the current stream and raises if its C function
-    returns an error. The scratch is padded to Tp = T and Wp = 2m−1
-    rounded up to 16; dE's partials take one group of batch rows per
-    slice of CTAs that fills the card about twice at three CTAs per SM."""
+                drop_threshold, cells=(0, 0, None), lib=None):
+    """Outputs, scratch and the stage launches of the backward, not yet
+    launched: ``(grads, [(stage name, launch), ...], (P', dS, dR))``, on
+    ``csrc/rel_attention_bwd_wmma.cu`` for bf16 and
+    ``csrc/rel_attention_bwd.cu`` for f32 (``lib``: another build of that
+    source, bound by ``_bind``). Each launch runs on the current stream and
+    raises if its C function returns an error. The scratch, in the input
+    dtype, is padded to Tp = T and Wp = 2m−1 rounded up to 16; dE's
+    partials take one group of batch rows per slice of CTAs that fills the
+    card about twice at three CTAs per SM (bf16: 64-slot tiles), or four
+    times at two (f32: 128-slot tiles, a shorter tail)."""
     b, h, t, dh = q.shape
     if cells[2] is None:
         cells = (cells[0], cells[1], h)
     tp, wp = _round16(t), _round16(2 * max_dist - 1)
+    bf16 = q.dtype == torch.bfloat16
+    slot_tile, ctas = (64, 6) if bf16 else (128, 8)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    groups = min(b, -(-6 * sms // (h * -(-wp // 64))))
+    groups = min(b, -(-ctas * sms // (h * -(-wp // slot_tile))))
     groups = -(-b // -(-b // groups))     # no empty group
-    lib = _library("rel_attention_bwd_wmma")
+    lib_name = "rel_attention_bwd_wmma" if bf16 else "rel_attention_bwd"
+    lib = lib or _library(lib_name)
     dq, dk, dv, de = (torch.empty_like(x) for x in (q, k, v, rel_emb))
     pp, ds = (torch.empty((b, h, tp, tp), dtype=q.dtype, device=q.device)
               for _ in range(2))
@@ -342,14 +347,14 @@ def _staged_bwd(q, k, v, rel_emb, dout, max_dist, valid_len, seed,
     args = {
         "scores": (q, k, v, rel_emb, dout, pp, ds, dr, *dims, valid_len,
                    scale, seed, drop_threshold, _keep_scale(drop_threshold),
-                   *cells),
+                   *cells, *(() if bf16 else (0,))),    # f32: is_bf16 = 0
         "dkdv": (q, dout, pp, ds, dk, dv, *dims, scale),
         "dq": (k, rel_emb, ds, dr, dq, *dims, scale),
         "de": (q, dr, part, de, *dims, groups),
     }
 
     def launcher(i, name):
-        fn = getattr(lib, f"rel_attention_bwd_wmma_{name}")
+        fn = getattr(lib, f"{lib_name}_{name}")
 
         def launch():
             with torch.cuda.device(q.device):
@@ -357,10 +362,9 @@ def _staged_bwd(q, k, v, rel_emb, dout, max_dist, valid_len, seed,
                 err = fn(*(x.data_ptr() if isinstance(x, torch.Tensor)
                            else x for x in args[name]), stream)
             if err != 0:
-                _raise_launch_error(
-                    f"rel_attention_bwd stage {name}", lib, err,
-                    lib.rel_attention_bwd_wmma_smem_bytes(i, t, dh,
-                                                          max_dist))
+                smem = getattr(lib, f"{lib_name}_smem_bytes")
+                _raise_launch_error(f"rel_attention_bwd stage {name}", lib,
+                                    err, smem(i, t, dh, max_dist))
         return launch
 
     return ((dq, dk, dv, de),
@@ -417,7 +421,12 @@ rel_attention.f32_launches = 0  # of them, on the f32 route
 
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
-    lib = build.load(name)
+    return _bind(build.load(name), name)
+
+
+def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set the argument and result types of the C entries of a build of
+    ``csrc/<name>.cu``."""
     ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     f32 = ctypes.c_float
     dims = [i32] * 5                                      # B, H, T, dh, m
@@ -429,13 +438,10 @@ def _library(name: str) -> ctypes.CDLL:
     elif name == "rel_attention_fwd_wmma":
         argtypes = {name: [ptr] * 5 + dims + drop + [ptr]}
         smem_args = [i32, i32, i32]
-    elif name == "rel_attention_bwd":
-        argtypes = {name: [ptr] * 12 + dims + drop + [i32, ptr]}
-        smem_args = [i32, i32]
-        lib.rel_attention_bwd_partial_elems.argtypes = [i32] + dims
-        lib.rel_attention_bwd_partial_elems.restype = ctypes.c_longlong
-    else:
-        argtypes = {f"{name}_scores": [ptr] * 8 + dims + drop + [ptr],
+    else:   # the backward's stages; the f32 scores entry takes is_bf16
+        f32_flag = [i32] if name == "rel_attention_bwd" else []
+        argtypes = {f"{name}_scores": [ptr] * 8 + dims + drop + f32_flag
+                    + [ptr],
                     f"{name}_dkdv": [ptr] * 6 + dims + [f32, ptr],
                     f"{name}_dq": [ptr] * 5 + dims + [f32, ptr],
                     f"{name}_de": [ptr] * 4 + dims + [i32, ptr]}

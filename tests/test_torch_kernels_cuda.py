@@ -128,12 +128,13 @@ def test_rel_attention_forward_route_counts_one_launch_per_call(
     assert opened == [source, source]
 
 
-@pytest.mark.parametrize("name,args", [
-    ("rel_attention_fwd", 5),    # q, k, v, e, o
-    ("rel_attention_bwd", 12),   # + dout, dq, dk, dv, de and 3 partials
+@pytest.mark.parametrize("lib_name,name,args", [
+    ("rel_attention_fwd", "rel_attention_fwd", 5),   # q, k, v, e, o
+    # the backward's first stage: + dout and the scratch P', dS, dR
+    ("rel_attention_bwd", "rel_attention_bwd_scores", 8),
 ])
-def test_f32_kernel_entries_reject_bf16(card, name, args):
-    lib = attention_module._library(name)
+def test_f32_kernel_entries_reject_bf16(card, lib_name, name, args):
+    lib = attention_module._library(lib_name)
     stream = torch.cuda.current_stream().cuda_stream
     x = torch.zeros(1, device="cuda")
     # dims, valid_len, scale, seed, threshold, 1/keep, the cells' offsets
@@ -240,6 +241,55 @@ def test_rel_attention_backward_bf16_scratch_matches_the_staged_mirror(card):
                                    msg=name)
         assert not ours[:, :, t:].float().abs().any(), name
         assert not ours[:, :, :, cols:].float().abs().any(), name
+
+
+def test_rel_attention_backward_f32_scratch_matches_the_staged_mirror(card):
+    t, m, valid_len = 200, 100, 150
+    q, k, v, e = _inputs(t, torch.float32, seed=10, b=2, m=m)
+    g = torch.Generator().manual_seed(11)
+    dout = torch.randn(q.shape, generator=g).to("cuda")
+    _, stages, scratch = _staged_bwd(q, k, v, e, dout, m, valid_len, 4, DROP)
+    stages[0][1]()          # stage A alone: P', dS and dR in f32
+    _, ref = rel_attention_bwd_staged_plain(
+        q, k, v, e, dout, m, valid_len, 4, DROP, return_scratch=True)
+    w = 2 * m - 1
+    for name, ours, r in zip(("P'", "dS", "dR"), scratch, ref):
+        cols = w if name == "dR" else t
+        assert ours.dtype == torch.float32
+        # f32 both; the products and D sum in another order
+        torch.testing.assert_close(ours[:, :, :t, :cols], r, rtol=0,
+                                   atol=1e-4 * r.abs().max().item(),
+                                   msg=name)
+        assert not ours[:, :, t:].abs().any(), name
+        assert not ours[:, :, :, cols:].abs().any(), name
+
+
+@pytest.mark.parametrize("drop", [0, DROP], ids=["nodrop", "drop"])
+def test_rel_attention_backward_f32_at_the_recognition_micro_step(card,
+                                                                   drop):
+    # a recognition micro-step's B=64 at T=200: against autograd through
+    # the plain version, bit-equal between calls, one launch a call
+    q, k, v, e = _inputs(200, torch.float32, seed=15, b=64)
+    g = torch.Generator().manual_seed(16)
+    dout = torch.randn(q.shape, generator=g).to("cuda")
+    before = rel_attention_bwd.f32_launches
+    ours = rel_attention_bwd(q, k, v, e, dout, 100, None, 9, drop)
+    again = rel_attention_bwd(q, k, v, e, dout, 100, None, 9, drop)
+    torch.cuda.synchronize()
+    assert rel_attention_bwd.f32_launches == before + 2
+    xs = [x.detach().requires_grad_() for x in (q, k, v, e)]
+    rel_attention_plain(*xs, 100, None, 9, drop).backward(dout)
+    for name, o, o2, x in zip(("dq", "dk", "dv", "de"), ours, again, xs):
+        assert torch.equal(o, o2), name
+        torch.testing.assert_close(o, x.grad, rtol=0,
+                                   atol=1e-4 * x.grad.abs().max().item(),
+                                   msg=name)
+
+
+def test_rel_attention_backward_f32_raises_past_its_band(card):
+    q, k, v, e = _inputs(300, torch.float32, m=106)
+    with pytest.raises(ValueError, match="columns"):
+        rel_attention_bwd(q, k, v, e, torch.ones_like(q), 106)
 
 
 def test_autograd_runs_both_attention_kernels(card):
