@@ -279,6 +279,7 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3
 F32_TIMED_STEPS = 3                # the float32 path's steps, after a warm-up
 F32_BWD_KERNEL = "bwd_f32_"        # csrc/rel_attention_bwd.cu in a trace
+F32_FWD_KERNEL = "::fwd_f32<"      # csrc/rel_attention_fwd.cu in a trace
 COMPARED_GRADS = ("conv_blocks.0.conv1.weight",
                   "transformer.layers.0.self_attn.w_q",
                   "transformer.layers.5.self_attn.relative_positional"
@@ -1766,9 +1767,9 @@ def f32_train(card, batch, lr):
     through the kernels: one warm-up step, then ``F32_TIMED_STEPS`` steps
     timed by the host clock around synchronized work with the counts
     zeroed just before and read just after (6 K1f and 6 K1b a step, all on
-    the f32 routes, and the DTW), then one step under the profiler for K1b
-    f32's device time in it. Returns the timed steps' launches and the
-    step's numbers."""
+    the f32 routes, and the DTW), then one step under the profiler for K1f
+    and K1b f32's device time in it. Returns the timed steps' launches and
+    the step's numbers."""
     import torch
     from silent_speech_tpu_torch.config import ModelConfig
     from silent_speech_tpu_torch.train.transduction import (
@@ -1806,16 +1807,21 @@ def f32_train(card, batch, lr):
                           events=events)
     k1b = [(end - start) / 1e3 for name, start, end in events
            if F32_BWD_KERNEL in name]
+    k1f = [(end - start) / 1e3 for name, start, end in events
+           if F32_FWD_KERNEL in name]
     k1b_ms = sum(k1b) if k1b else None
+    k1f_ms = sum(k1f) if k1f else None
     busy = prof[1] if prof else None
     log(f"[time] {card} | train step f32 full width: {step_ms:.1f} ms a "
         f"step over {n} steps after one warm-up; K1b f32 device time in "
         f"one step (profiler, {len(k1b)} kernel launches of its "
-        f"{layers} calls): {fmt_ms(k1b_ms)}, of {fmt_ms(busy)} device busy")
+        f"{layers} calls): {fmt_ms(k1b_ms)}, K1f f32 ({len(k1f)} "
+        f"launches): {fmt_ms(k1f_ms)}, of {fmt_ms(busy)} device busy")
     del tr, out
     torch.cuda.empty_cache()
     return launches, {"steps": n, "step_ms": step_ms,
-                      "k1b_device_ms": k1b_ms, "device_busy_ms": busy}
+                      "k1b_device_ms": k1b_ms, "k1f_device_ms": k1f_ms,
+                      "device_busy_ms": busy}
 
 
 def _snapshot(trainer):

@@ -27,10 +27,13 @@ the forward is ``csrc/rel_attention_fwd_wmma.cu`` (one WMMA kernel that
 rounds P' to bf16 before ·V, where the JAX kernel rounds it), the backward
 the four staged WMMA kernels of ``csrc/rel_attention_bwd_wmma.cu``.
 float32, the route that ``--compute_dtype float32`` trains on, keeps full
-f32 arithmetic on the CUDA cores: the forward is ``csrc/rel_attention_fwd.cu``,
-the backward the same four stages in ``csrc/rel_attention_bwd.cu`` with
-register-tiled FP32 products and f32 scratch. Both backward routes are
-bit-equal from call to call. CPU tensors take ``rel_attention_plain``,
+f32 arithmetic on the CUDA cores with register-tiled FP32 products on the
+band machinery of ``csrc/f32_band.cuh``: the forward is
+``csrc/rel_attention_fwd.cu`` (one kernel; raises ``ValueError`` only where
+a CTA's shared memory, which grows with the window past m = 105, exceeds
+the card's), the backward the same four stages in
+``csrc/rel_attention_bwd.cu`` with f32 scratch. Every route is bit-equal
+from call to call. CPU tensors take ``rel_attention_plain``,
 differentiated by autograd; nothing else selects the plain version, and a
 CUDA launch that fails raises.
 ``rel_attention_plain(store_dtype=torch.bfloat16)`` mirrors the bf16
@@ -225,6 +228,11 @@ def f32_bwd_fits(t: int, max_dist: int) -> bool:
             and min(2 * max_dist - 1, t + 31) <= F32_BWD_COLS)
 
 
+# the H100's shared memory for one CTA, where the device properties do not
+# give it
+SMEM_PER_BLOCK_OPTIN = 232448
+
+
 def _raise_launch_error(name, lib, err, smem_bytes) -> None:
     raise RuntimeError(
         f"{name} launch failed: "
@@ -241,6 +249,14 @@ def _launch_fwd(q, k, v, rel_emb, max_dist, valid_len, seed,
     bf16 = q.dtype == torch.bfloat16
     name = "rel_attention_fwd_wmma" if bf16 else "rel_attention_fwd"
     lib = _library(name)
+    if not bf16:   # its score buffer grows with the window past m = 105
+        need = lib.rel_attention_fwd_smem_bytes(t, dh, max_dist)
+        limit = getattr(torch.cuda.get_device_properties(q.device),
+                        "shared_memory_per_block_optin", SMEM_PER_BLOCK_OPTIN)
+        if need > limit:
+            raise ValueError(
+                f"the f32 forward's CTA needs {need} bytes of shared memory "
+                f"at T={t}, max_dist={max_dist}; the card gives {limit}")
     out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_emb.data_ptr(),
             out.data_ptr(), b, h, t, dh, max_dist, valid_len,
@@ -253,8 +269,7 @@ def _launch_fwd(q, k, v, rel_emb, max_dist, valid_len, seed,
         else:
             err = lib.rel_attention_fwd(*args, 0, stream)
     if err != 0:
-        smem = (lib.rel_attention_fwd_wmma_smem_bytes(t, dh, max_dist) if bf16
-                else lib.rel_attention_fwd_smem_bytes(dh, max_dist))
+        smem = getattr(lib, f"{name}_smem_bytes")(t, dh, max_dist)
         _raise_launch_error(name, lib, err, smem)
     rel_attention.launches += 1
     if not bf16:
@@ -432,11 +447,10 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     dims = [i32] * 5                                      # B, H, T, dh, m
     # valid_len, scale, seed, t, 1/keep, b_offset, h_offset, H_total
     drop = [i32, f32, u32, u32, f32, i32, i32, i32]
-    if name == "rel_attention_fwd":
-        argtypes = {name: [ptr] * 5 + dims + drop + [i32, ptr]}
-        smem_args = [i32, i32]
-    elif name == "rel_attention_fwd_wmma":
-        argtypes = {name: [ptr] * 5 + dims + drop + [ptr]}
+    if name in ("rel_attention_fwd", "rel_attention_fwd_wmma"):
+        # the f32 entry takes is_bf16; both smem functions (T, dh, m)
+        f32_flag = [i32] if name == "rel_attention_fwd" else []
+        argtypes = {name: [ptr] * 5 + dims + drop + f32_flag + [ptr]}
         smem_args = [i32, i32, i32]
     else:   # the backward's stages; the f32 scores entry takes is_bf16
         f32_flag = [i32] if name == "rel_attention_bwd" else []

@@ -1,5 +1,6 @@
-"""The float32 attention backward against another version of
-``csrc/rel_attention_bwd.cu`` on the card.
+"""The float32 attention kernels against other versions of their sources
+on the card: the backward (``csrc/rel_attention_bwd.cu``) or, with
+``--forward``, the forward (``csrc/rel_attention_fwd.cu``).
 
     mkdir -p build/old
     git show <commit>:silent_speech_tpu_torch/csrc/rel_attention_bwd.cu \\
@@ -9,10 +10,13 @@
     python -m silent_speech_tpu_torch.ops.rel_attention_study \\
         --against build/old/rel_attention_bwd.cu [--shapes train,rec] \\
         [--ablate]
+    # the forward: the same with rel_attention_fwd.cu and
+    python -m silent_speech_tpu_torch.ops.rel_attention_study --forward \\
+        --against build/old/rel_attention_fwd.cu [--ablate]
 
-``--against`` names a source with the single C entry of the design before
-the staged one, ``rel_attention_bwd`` (one kernel writing per-query-tile
-partials of dK, dV and dE, a second summing them) and
+Backward. ``--against`` names a source with the single C entry of the
+design before the staged one, ``rel_attention_bwd`` (one kernel writing
+per-query-tile partials of dK, dV and dE, a second summing them) and
 ``rel_attention_bwd_partial_elems``; it includes the ``rel_attention.cuh``
 beside it, else the port's. Both are built with the port's nvcc flags, the
 other into ``build/rel_attention_study/``. At the training step's shape
@@ -28,13 +32,27 @@ stages alone, with the SM clock and the power draw sampled by
 ``nvidia-smi`` meanwhile (medians).
 
 ``--ablate`` times each stage, at the training step's shape, of variants
-of the port's own source, each a text edit that must apply to it: (a)
-stage A's products with a quarter of their FMAs (one of the four a
-128-bit step), (b) stage A without R's product, (c) stage A without its
-scratch stores, (d) stage A without the dropout hash, (e) stage A
-without the softmax, (f) a third buffer in every stage's ring of slices.
-Their outputs are wrong by design but (f)'s; the point is the ms each
-piece costs.
+of the port's own source, each a text edit that must apply to it or to
+the ``f32_band.cuh`` it includes: (a) stage A's products with a quarter of
+their FMAs (one of the four a 128-bit step), (b) stage A without R's
+product, (c) stage A without its scratch stores, (d) stage A without the
+dropout hash, (e) stage A without the softmax, (f) a third buffer in every
+stage's ring of slices. Their outputs are wrong by design but (f)'s; the
+point is the ms each piece costs.
+
+Forward (``--forward``). ``--against`` names another source with the C
+entry ``rel_attention_fwd`` (the same arguments as the port's; the
+design before the band one includes the ``rel_attention.cuh`` of its
+commit, which goes beside it). At ``train`` and ``rec`` with dropout 0.2
+both outputs must lie within 1e-4 of the plain version
+(``chip_smoke.KERNEL_ATOL``), the port's repeat bit for bit, and both
+are compared with each other; then the two C entries are timed alone in
+turns (other, port, port, other) into preallocated outputs, with the SM
+clock and power, beside ``chip_smoke.attention_bound``'s bound and the
+plain version's time. Its
+``--ablate`` times, at ``train`` and in turns with the port, (a) the
+three products with a quarter of their FMAs, (b) no P'.V, (c) no
+dropout hash.
 
 Needs a CUDA card and nvcc. Prints one line per result and writes them as
 JSON to ``--out``.
@@ -55,13 +73,15 @@ import torch
 from . import build
 from .rel_attention import (STAGES, _bind, _keep_scale, _library,
                             _staged_bwd, attention_drop_threshold,
-                            rel_attention_bwd, rel_attention_plain)
+                            rel_attention, rel_attention_bwd,
+                            rel_attention_plain)
 
 ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "build" / "rel_attention_study"
 SHAPES = {"train": 120, "rec": 64}       # B at H=8, T=200, d_h=96, m=100
 H, T, DH, M = 8, 200, 96, 100
 RTOL = 1e-4                               # chip_smoke.BWD_RTOL["float32"]
+FWD_ATOL = 1e-4                           # chip_smoke.KERNEL_ATOL["float32"]
 
 # --ablate: text edits of csrc/rel_attention_bwd.cu
 _FMA_YZW = """        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
@@ -94,9 +114,9 @@ ABLATIONS = {
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 
-def _load_other(src: Path) -> ctypes.CDLL:
+def _load_other(src: Path, forward: bool = False) -> ctypes.CDLL:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    out = OUT_DIR / "libother.so"
+    out = OUT_DIR / ("libother_fwd.so" if forward else "libother.so")
     cmd = [build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
            str(out), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -105,6 +125,12 @@ def _load_other(src: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                           ctypes.c_float)
+    if forward:     # q, k, v, e, o, dims, the dropout's, is_bf16, stream
+        lib.rel_attention_fwd.argtypes = ([ptr] * 5 + [i32] * 6
+                                          + [f32, u32, u32, f32] + [i32] * 4
+                                          + [ptr])
+        lib.rel_attention_fwd.restype = i32
+        return lib
     lib.rel_attention_bwd.argtypes = ([ptr] * 12 + [i32] * 6
                                       + [f32, u32, u32, f32] + [i32] * 4
                                       + [ptr])
@@ -114,31 +140,57 @@ def _load_other(src: Path) -> ctypes.CDLL:
     return lib
 
 
-def ablation_libs() -> dict:
-    """Each ablation of the port's source, built in parallel and bound."""
-    src = (build.CSRC / "rel_attention_bwd.cu").read_text()
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+# --forward --ablate: text edits of csrc/rel_attention_fwd.cu and the
+# f32_band.cuh it includes
+FWD_ABLATIONS = {
+    "a": [(_FMA_YZW, ""), ("          for (int s = 0; s < 4; ++s) {",
+                           "          for (int s = 0; s < 1; ++s) {")],
+    "b": [("      ncp / KV,", "      0,"),
+          ("  stage_async<DH>(sV, LDV, vh, DH, kb, KV, T, 0, DH);\n", "")],
+    "c": [("const bool keep = drop_threshold == 0u ||",
+           "const bool keep = true ||")],
+}
+HEADER = "f32_band.cuh"
+
+
+def edited_texts(name: str, tag: str, edits) -> dict:
+    """``csrc/<name>.cu`` and the f32_band.cuh it includes, by file name,
+    after the edits of ablation ``tag``: each applies to the one text that
+    holds its code, exactly once, or the call raises."""
+    edited = {f"{name}.cu": (build.CSRC / f"{name}.cu").read_text(),
+              HEADER: (build.CSRC / HEADER).read_text()}
+    for old, new in edits:
+        where = [f for f, text in edited.items() if old in text]
+        if len(where) != 1 or edited[where[0]].count(old) != 1:
+            raise ValueError(f"--ablate ({tag}): the source does not have "
+                             f"the code this variant edits once:\n{old}")
+        edited[where[0]] = edited[where[0]].replace(old, new)
+    return edited
+
+
+def ablation_libs(name: str = "rel_attention_bwd",
+                  ablations: dict = ABLATIONS) -> dict:
+    """Each ablation of ``csrc/<name>.cu``, built in parallel and bound; a
+    variant's edited texts go into a directory of their own, which its
+    include finds first."""
     procs = {}
-    for name, edits in ABLATIONS.items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise ValueError(f"--ablate ({name}): the source does not "
-                                 f"have the code this variant edits:\n{old}")
-            text = text.replace(old, new)
-        path = OUT_DIR / f"ablate_{name}.cu"
-        path.write_text(text)
-        out = OUT_DIR / f"libablate_{name}.so"
-        procs[name] = (out, subprocess.Popen(
+    for tag, edits in ablations.items():
+        edited = edited_texts(name, tag, edits)
+        out_dir = OUT_DIR / f"ablate_{name}_{tag}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for f, text in edited.items():
+            (out_dir / f).write_text(text)
+        out = out_dir / f"lib{name}.so"
+        procs[tag] = (out, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
-             str(out), str(path)], stdout=subprocess.PIPE,
+             str(out), str(out_dir / f"{name}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, (out, proc) in procs.items():
+    for tag, (out, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"--ablate ({name}) did not build:\n{log}")
-        libs[name] = _bind(ctypes.CDLL(str(out)), "rel_attention_bwd")
+            raise RuntimeError(f"--ablate ({tag}) did not build:\n{log}")
+        libs[tag] = _bind(ctypes.CDLL(str(out)), name)
     return libs
 
 
@@ -174,20 +226,23 @@ def _other_call(lib, q, k, v, e, dout, seed, thresh):
 
 class ClockSampler:
     """``nvidia-smi``'s SM clock (MHz) and power draw (W) every 100 ms
-    while the block runs; ``median()`` gives both medians."""
+    while the block runs, from its first sample on (the block starts once
+    ``nvidia-smi`` is up, so a short one still gets its samples);
+    ``median()`` gives both medians."""
 
     def __enter__(self):
         self.proc = subprocess.Popen(
             ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
              "--format=csv,noheader,nounits", "-lms", "100"],
             stdout=subprocess.PIPE, text=True)
+        self.proc.stdout.readline()   # nvidia-smi is up: its first sample
         return self
 
     def __exit__(self, *exc):
         self.proc.terminate()
+        lines = self.proc.communicate()[0].splitlines()
         self.rows = [[float(x) for x in line.split(",")]
-                     for line in self.proc.communicate()[0].splitlines()
-                     if line.count(",") == 1]
+                     for line in lines if line.count(",") == 1]
 
     def median(self):
         if not self.rows:
@@ -269,6 +324,127 @@ def ablate(card, thresh, rounds, iters) -> dict:
     return {"ms": med, "sm_clock_mhz": clock, "power_w": power}
 
 
+def _fwd_call(lib, q, k, v, e, seed, thresh):
+    """A library's f32 forward as a call that launches it on the current
+    stream into a preallocated output, and that output."""
+    b = q.shape[0]
+    out = torch.empty_like(q)
+    args = [x.data_ptr() for x in (q, k, v, e, out)]
+
+    def call():
+        err = lib.rel_attention_fwd(
+            *args, b, H, T, DH, M, T, 1.0 / math.sqrt(DH), seed, thresh,
+            _keep_scale(thresh), 0, 0, H, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"rel_attention_fwd failed: cudaError {err}")
+
+    return call, out
+
+
+def fwd_bound_ms(b: int):
+    """chip_smoke.attention_bound in f32: Q, K, V, E read and O written
+    once over HBM, or three d_h-long products a visible pair over the
+    FP32 peak; the larger, and which one it is."""
+    pos = np.arange(T)
+    pairs = int((np.abs(pos[:, None] - pos[None, :]) <= M - 1).sum())
+    t_bytes = (4 * b * H * T * DH + H * (2 * M - 1) * DH) * 4 \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 6 * DH * pairs * b * H / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_fwd(name, other, b, thresh) -> dict:
+    q, k, v, e, _ = _inputs(b, seed=b)
+    ours = rel_attention(q, k, v, e, M, None, 3, thresh)
+    again = rel_attention(q, k, v, e, M, None, 3, thresh)
+    call, theirs = _fwd_call(other, q, k, v, e, 3, thresh)
+    call()
+    ref = rel_attention_plain(q, k, v, e, M, None, 3, thresh)
+    torch.cuda.synchronize()
+    out = {"case": name, "B": b, "repeat_equal": torch.equal(ours, again),
+           "err_plain": float((ours - ref).abs().max()),
+           "other_err_plain": float((theirs - ref).abs().max()),
+           "err_other": float((ours - theirs).abs().max())}
+    out["ok"] = out["repeat_equal"] and out["err_plain"] <= FWD_ATOL
+    return out
+
+
+def ablate_fwd(card, thresh, rounds, iters) -> dict:
+    """The port's forward and its ablations at the training step's shape,
+    timed alone in turns; medians in ms."""
+    libs = {"port": _library("rel_attention_fwd"),
+            **ablation_libs("rel_attention_fwd", FWD_ABLATIONS)}
+    q, k, v, e, _ = _inputs(SHAPES["train"], seed=1)
+    calls = {n: _fwd_call(lib, q, k, v, e, 3, thresh)[0]
+             for n, lib in libs.items()}
+    times = {n: [] for n in libs}
+    order = list(libs)
+    with ClockSampler() as clocks:
+        for _ in range(rounds):
+            for n in order + order[::-1]:
+                times[n].append(_ms(calls[n], iters))
+    med = {n: float(np.median(v)) for n, v in times.items()}
+    clock, power = clocks.median()
+    print(f"[rel_attention_study] {card} | forward ablations at B="
+          f"{SHAPES['train']}: " + ", ".join(f"{n} {t:.4f}"
+                                              for n, t in med.items())
+          + f" ms, medians of {2 * rounds} in turns; SM clock {clock} MHz, "
+          f"{power} W", flush=True)
+    return {"ms": med, "sm_clock_mhz": clock, "power_w": power}
+
+
+def main_forward(args, card, thresh) -> int:
+    build.build(["rel_attention_fwd"])
+    other = _load_other(args.against, forward=True)
+    shapes = args.shapes.split(",")
+    result = {"card": card, "against": str(args.against), "kernel": "forward",
+              "shape": f"H={H} T={T} d_h={DH} m={M} f32 dropout 0.2",
+              "checks": [check_fwd(s, other, SHAPES[s], thresh)
+                         for s in shapes]}
+    for c in result["checks"]:
+        print(f"[rel_attention_study] forward check {json.dumps(c)}",
+              flush=True)
+    result["times"] = {}
+    port = _library("rel_attention_fwd")
+    for s in shapes:
+        b = SHAPES[s]
+        q, k, v, e, _ = _inputs(b, seed=b)
+        calls = {"other": _fwd_call(other, q, k, v, e, 3, thresh)[0],
+                 "port": _fwd_call(port, q, k, v, e, 3, thresh)[0]}
+        times = {n: [] for n in calls}
+        with ClockSampler() as clocks:
+            for _ in range(args.rounds):
+                for n in ("other", "port", "port", "other"):
+                    times[n].append(_ms(calls[n], args.iters))
+        clock, power = clocks.median()
+        bound, by = fwd_bound_ms(b)
+        med = {n: float(np.median(v)) for n, v in times.items()}
+        plain = _ms(lambda: rel_attention_plain(q, k, v, e, M, None, 3,
+                                                thresh), 3)
+        result["times"][s] = {"B": b, "ms": times, "median_ms": med,
+                              "plain_ms": plain, "bound_ms": bound,
+                              "bound_by": by, "sm_clock_mhz": clock,
+                              "power_w": power}
+        print(f"[rel_attention_study] {card} | forward B={b} H={H} T={T} "
+              f"d_h={DH} m={M} f32 dropout 0.2: other {med['other']:.4f} "
+              f"ms, port {med['port']:.4f} ms "
+              f"({med['other'] / med['port']:.2f}x), medians of "
+              f"{len(times['port'])} in turns; plain {plain:.4f} ms; bound "
+              f"{bound:.5f} ms ({by}), "
+              f"the port at {bound / med['port']:.1%} of it, the other at "
+              f"{bound / med['other']:.1%}; SM clock {clock} MHz, {power} W "
+              f"(medians)", flush=True)
+        del calls, q, k, v, e
+        torch.cuda.empty_cache()
+    if args.ablate:
+        result["ablations"] = ablate_fwd(card, thresh, args.rounds,
+                                         args.iters)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(result, indent=1))
+    return 0 if all(c["ok"] for c in result["checks"]) else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", required=True, type=Path)
@@ -276,7 +452,12 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--ablate", action="store_true")
-    ap.add_argument("--out", type=Path, default=OUT_DIR / "study.json")
+    ap.add_argument("--forward", action="store_true",
+                    help="study csrc/rel_attention_fwd.cu (default: the "
+                         "backward)")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="JSON results (default build/rel_attention_study/"
+                         "study.json, or study_fwd.json with --forward)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("rel_attention_study needs a CUDA card")
@@ -286,9 +467,14 @@ def main(argv=None) -> int:
                           text=True).stdout.strip()
     print(f"[rel_attention_study] {card}; torch {torch.__version__}",
           flush=True)
+    thresh = attention_drop_threshold(0.2)
+    if args.out is None:
+        args.out = OUT_DIR / ("study_fwd.json" if args.forward
+                              else "study.json")
+    if args.forward:
+        return main_forward(args, card, thresh)
     build.build(["rel_attention_bwd"])
     other = _load_other(args.against)
-    thresh = attention_drop_threshold(0.2)
     shapes = args.shapes.split(",")
     result = {"card": card, "against": str(args.against),
               "shape": f"H={H} T={T} d_h={DH} m={M} f32 dropout 0.2",

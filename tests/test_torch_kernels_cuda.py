@@ -144,6 +144,48 @@ def test_f32_kernel_entries_reject_bf16(card, lib_name, name, args):
     assert err == 1   # cudaErrorInvalidValue, before any launch
 
 
+def test_rel_attention_forward_f32_is_bit_equal_between_calls(card):
+    q, k, v, e = _inputs(200, torch.float32, seed=12, b=4)
+    first = rel_attention(q, k, v, e, 100, None, 5, DROP)
+    second = rel_attention(q, k, v, e, 100, None, 5, DROP)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("b,t,valid_len,m,drop", [
+    (120, 200, 200, 100, DROP),   # the training shape
+    (2, 300, 250, 130, DROP),     # a window past 105: two panels of R, S
+    (1, 2048, 1500, 100, 0),      # serving's largest bucket
+    (1, 2048, 2048, 163, DROP),   # the parent's widest window at d_h = 96
+])
+def test_rel_attention_f32_forward_matches_plain(card, b, t, valid_len, m,
+                                                 drop):
+    q, k, v, e = _inputs(t, torch.float32, seed=t + m, b=b, m=m)
+    before = rel_attention.f32_launches
+    out = rel_attention(q, k, v, e, m, valid_len, 21, drop)
+    torch.cuda.synchronize()
+    assert rel_attention.f32_launches == before + 1
+    ref = rel_attention_plain(q, k, v, e, m, valid_len, 21, drop)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dh", [16, 48, 64, 80, 128])
+def test_rel_attention_f32_forward_at_every_head_width(card, dh):
+    # one kernel a width (d_h / 16 columns a thread in P'.V)
+    q, k, v, e = _inputs(200, torch.float32, seed=dh, b=2, h=3, dh=dh)
+    out = rel_attention(q, k, v, e, 100, 150, 8, DROP, b_offset=1,
+                        h_offset=2, h_total=6)
+    ref = rel_attention_plain(q, k, v, e, 100, 150, 8, DROP, b_offset=1,
+                              h_offset=2, h_total=6)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+def test_rel_attention_f32_forward_raises_past_the_cards_shared_memory(card):
+    # a band of 1456 keys at T = 2048: its scores need 237,568 bytes
+    q, k, v, e = _inputs(2048, torch.float32, h=1, m=700)
+    with pytest.raises(ValueError, match="shared memory"):
+        rel_attention(q, k, v, e, 700)
+
+
 @pytest.mark.parametrize("b", [4, 120])
 def test_rel_attention_backward_f32_is_bit_equal_between_calls(card, b):
     q, k, v, e = _inputs(200, torch.float32, seed=13, b=b)

@@ -1,6 +1,8 @@
 """The float32 attention backward of ``csrc/rel_attention_bwd.cu`` on the
 CPU: a numpy replay of its four stages' walk, with the tiling constants and
-index formulas parsed from the source.
+index formulas parsed from the source and from ``csrc/f32_band.cuh``, where
+stage A's band product, its staging and its constants live (shared with
+the forward).
 
 The replay runs each CTA as the kernels do: stage A's query tiles, its key
 band and slot range, R scattered onto the band, the masks, the softmax, D
@@ -30,8 +32,9 @@ from silent_speech_tpu_torch.ops.rel_attention import (
 
 from torch_port_util import one_torch_thread
 
-SRC = (Path(__file__).resolve().parents[1] / "silent_speech_tpu_torch"
-       / "csrc" / "rel_attention_bwd.cu").read_text()
+CSRC = Path(__file__).resolve().parents[1] / "silent_speech_tpu_torch" / "csrc"
+SRC = "\n".join((CSRC / name).read_text()
+                for name in ("f32_band.cuh", "rel_attention_bwd.cu"))
 SEED = 97531
 SMS = 132   # the H100's SMs, for the wrapper's dE groups
 
