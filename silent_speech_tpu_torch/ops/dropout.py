@@ -28,6 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import span
+
 M32 = 0xFFFFFFFF
 
 
@@ -65,27 +67,28 @@ def keep_mask(shape, seed: int, threshold: int, device: torch.device,
     """Boolean keep mask of ``shape``: element n keeps iff byte n mod 4 of
     ``hash_bits(n // 4, 0, seed)`` is ≥ ``threshold``, n the element's
     index in the one-process tensor that ``shard`` places it in."""
-    n = 1
-    for d in shape:
-        n *= int(d)
-    width = int(shape[-1]) if len(shape) else 1
-    row0, col0, cols = shard or Shard()
-    cols = width if cols is None else cols
-    shifts = torch.arange(0, 32, 8, device=device)
-    if col0 == 0 and cols == width:
-        # whole rows: one run of the flat index from base
-        base = row0 * cols
-        first = base % 4
-        words = hash_bits(torch.arange(base // 4, (base + n + 3) // 4,
-                                       device=device), 0, seed)
-        bytes_ = (words[:, None] >> shifts) & 0xFF
-        return (bytes_.reshape(-1)[first: first + n]
-                >= threshold).reshape(shape)
-    rows = torch.arange(row0, row0 + n // width, device=device)
-    index = (rows[:, None] * cols
-             + torch.arange(col0, col0 + width, device=device)[None, :])
-    bytes_ = (hash_bits(index >> 2, 0, seed) >> ((index & 3) * 8)) & 0xFF
-    return (bytes_ >= threshold).reshape(shape)
+    with span("ssp.dropout.mask"):
+        n = 1
+        for d in shape:
+            n *= int(d)
+        width = int(shape[-1]) if len(shape) else 1
+        row0, col0, cols = shard or Shard()
+        cols = width if cols is None else cols
+        shifts = torch.arange(0, 32, 8, device=device)
+        if col0 == 0 and cols == width:
+            # whole rows: one run of the flat index from base
+            base = row0 * cols
+            first = base % 4
+            words = hash_bits(torch.arange(base // 4, (base + n + 3) // 4,
+                                           device=device), 0, seed)
+            bytes_ = (words[:, None] >> shifts) & 0xFF
+            return (bytes_.reshape(-1)[first: first + n]
+                    >= threshold).reshape(shape)
+        rows = torch.arange(row0, row0 + n // width, device=device)
+        index = (rows[:, None] * cols
+                 + torch.arange(col0, col0 + width, device=device)[None, :])
+        bytes_ = (hash_bits(index >> 2, 0, seed) >> ((index & 3) * 8)) & 0xFF
+        return (bytes_ >= threshold).reshape(shape)
 
 
 def _scale(threshold: int, dtype: torch.dtype) -> torch.Tensor:

@@ -61,6 +61,7 @@ from ..text import TextTransform, wer
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import data_sync
 from ..utils.device import deterministic_cudnn, resolve_device
+from ..utils.profiling import span
 from .checkpoint import (checkpoint_exists, export_reference_checkpoint,
                          restore_checkpoint, save_checkpoint)
 from .losses import ctc_loss
@@ -179,9 +180,11 @@ class RecognitionTrainer:
             logits = self.model(raw, train=True, generator=self.generator)
             if self.mesh is not None:
                 logits = all_gather(logits, self.mesh.data_group, 0, "slice")
-            loss = ctc_loss(torch.log_softmax(logits, dim=-1), db,
-                            self.blank_id)
-            loss.backward()
+            with span("ssp.loss"):
+                loss = ctc_loss(torch.log_softmax(logits, dim=-1), db,
+                                self.blank_id)
+            with span("ssp.backward"):
+                loss.backward()
         self.optimizer.step(lr)
         return loss.detach()
 
@@ -197,19 +200,21 @@ class RecognitionTrainer:
         gathered on the device, equal to ``_pack`` of the same examples.
         Returns None, and steps nothing, when the batch exceeds the fixed
         caps; the caller then packs it on the host."""
-        if not self._cache_fits(corpus, ids):
-            return None
-        caps, u_cap = self._cache_caps(), self.utt_cap
-        ids = corpus.order_silent_first(ids)
-        utt_ids = torch.zeros(u_cap, dtype=torch.int64)
-        utt_ids[: len(ids)] = torch.as_tensor(ids, dtype=torch.int64)
-        if self.device.type == "cuda":
-            utt_ids = utt_ids.pin_memory()
-        utt_ids = utt_ids.to(self.device, non_blocking=True)
-        valid = torch.arange(u_cap, device=self.device) < len(ids)
-        db = assemble_batch(corpus.arrays, utt_ids, valid, with_audio=False,
-                            **caps)
-        return self._step(db, lr)
+        with span("ssp.step"):
+            if not self._cache_fits(corpus, ids):
+                return None
+            caps, u_cap = self._cache_caps(), self.utt_cap
+            ids = corpus.order_silent_first(ids)
+            with span("ssp.assemble"):
+                utt_ids = torch.zeros(u_cap, dtype=torch.int64)
+                utt_ids[: len(ids)] = torch.as_tensor(ids, dtype=torch.int64)
+                if self.device.type == "cuda":
+                    utt_ids = utt_ids.pin_memory()
+                utt_ids = utt_ids.to(self.device, non_blocking=True)
+                valid = torch.arange(u_cap, device=self.device) < len(ids)
+                db = assemble_batch(corpus.arrays, utt_ids, valid,
+                                    with_audio=False, **caps)
+            return self._step(db, lr)
 
     # ---------------- inference ---------------------------------------
     @torch.no_grad()

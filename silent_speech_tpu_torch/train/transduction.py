@@ -54,6 +54,7 @@ from ..phonemes import NUM_PHONES
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import data_sync
 from ..utils.device import deterministic_cudnn, resolve_device
+from ..utils.profiling import span
 from .checkpoint import (checkpoint_exists, export_reference_checkpoint,
                          is_writer, restore_checkpoint, save_checkpoint)
 from .losses import TransductionLossOut, transduction_loss
@@ -157,9 +158,10 @@ class TransductionTrainer:
                                for x in (pred, phone))
         else:
             pred, phone = model(db.raw_emg)
-        return transduction_loss(
-            pred, phone, db, self.train_cfg.phoneme_loss_weight,
-            n_silent=n_silent, **kwargs)
+        with span("ssp.loss"):
+            return transduction_loss(
+                pred, phone, db, self.train_cfg.phoneme_loss_weight,
+                n_silent=n_silent, **kwargs)
 
     def _step(self, db: DeviceBatch, n_silent: Optional[int], lr: float
               ) -> TransductionLossOut:
@@ -171,7 +173,8 @@ class TransductionTrainer:
         # batch give bit-equal gradients on the card, as in JAX
         with deterministic_cudnn():
             out = self._loss(db, n_silent, True, matmul_dtype=self.dtype)
-            out.loss.backward()
+            with span("ssp.backward"):
+                out.loss.backward()
         self.optimizer.step(lr)
         return out._replace(loss=out.loss.detach())
 
@@ -214,26 +217,29 @@ class TransductionTrainer:
         ``_pack`` of the same examples. Returns None, and steps nothing,
         when the batch exceeds the fixed caps; the caller then packs it on
         the host. Only the (U,) id vector crosses to the device."""
-        caps = self._cache_caps()
-        u_cap = self.utt_cap
-        ids = corpus.order_silent_first(ids)
-        if not self._cache_guard_ok(corpus, ids, caps, u_cap):
-            return None
-        n_sil = int(corpus.silent_mask[ids].sum())
-        n_silent = min(_round_up(n_sil, SILENT_BUCKET), u_cap) \
-            if n_sil else 0
-        utt_ids = torch.zeros(u_cap, dtype=torch.int64)
-        utt_ids[: len(ids)] = torch.as_tensor(ids, dtype=torch.int64)
-        if self.device.type == "cuda":
-            # from pinned memory the copy queues without waiting for the
-            # steps before it
-            utt_ids = utt_ids.pin_memory()
-        utt_ids = utt_ids.to(self.device, non_blocking=True)
-        valid = torch.arange(u_cap, device=self.device) < len(ids)
-        db = assemble_batch(corpus.arrays, utt_ids, valid,
-                            n_chunks=caps["n_chunks"],
-                            seq_len=caps["seq_len"], t_cap=caps["t_cap"])
-        return self._step(db, n_silent, lr)
+        with span("ssp.step"):
+            caps = self._cache_caps()
+            u_cap = self.utt_cap
+            ids = corpus.order_silent_first(ids)
+            if not self._cache_guard_ok(corpus, ids, caps, u_cap):
+                return None
+            n_sil = int(corpus.silent_mask[ids].sum())
+            n_silent = min(_round_up(n_sil, SILENT_BUCKET), u_cap) \
+                if n_sil else 0
+            with span("ssp.assemble"):
+                utt_ids = torch.zeros(u_cap, dtype=torch.int64)
+                utt_ids[: len(ids)] = torch.as_tensor(ids, dtype=torch.int64)
+                if self.device.type == "cuda":
+                    # from pinned memory the copy queues without waiting
+                    # for the steps before it
+                    utt_ids = utt_ids.pin_memory()
+                utt_ids = utt_ids.to(self.device, non_blocking=True)
+                valid = torch.arange(u_cap, device=self.device) < len(ids)
+                db = assemble_batch(corpus.arrays, utt_ids, valid,
+                                    n_chunks=caps["n_chunks"],
+                                    seq_len=caps["seq_len"],
+                                    t_cap=caps["t_cap"])
+            return self._step(db, n_silent, lr)
 
     @torch.no_grad()
     def eval_step(self, batch: PackedBatch, model: Optional[Forward] = None

@@ -1,27 +1,62 @@
-"""Tracing and per-step timing, as library functions.
+"""The port's own spans, and a trace of them and of the card's kernels.
 
-Own copy of the JAX package's ``silent_speech_tpu/utils/profiling.py``:
-
+- ``span(name)``: the context manager the training step opens around
+  itself and its phases (``ssp.step`` around ``ssp.assemble``,
+  ``ssp.loss`` and ``ssp.backward``), and ``keep_mask`` around each
+  dropout mask it builds (``ssp.dropout.mask``). While a
+  ``torch.profiler`` profile records, it is a range of the profiler's own,
+  on the clock the card's kernels are traced on, so a kernel belongs to
+  the span its launch was issued in; otherwise it is one shared null
+  context, and the step pays an attribute read a span. It creates no
+  tensor and never syncs. The range is a function-scope record (the kind
+  ATen's operators are), not a ``record_function`` user annotation: the
+  profiler draws each user annotation on the device as well, from its
+  first kernel to its last, which would hide the card's idle time inside
+  the step. Both the range and the enabled flag are private names of
+  torch's profiler; a torch without them fails at import with an
+  ``ImportError`` that names them and the torch version.
 - ``trace(logdir)``: a context manager around ``torch.profiler`` that
-  records the host and, when a CUDA card is present, the card's kernels,
-  and writes a Chrome trace into ``logdir`` (TensorBoard's profiler plugin
-  and ``chrome://tracing`` read it);
-- ``StepTimer``: wall-clock step statistics (steps a second, p50 and p90
-  ms) with a log line every ``log_every`` ticks.
+  records the host, the spans and, when a CUDA card is present, the
+  card's kernels, and writes a Chrome trace into ``logdir`` (TensorBoard's
+  profiler plugin and ``chrome://tracing`` read it).
 
-Nothing in the port calls either, and no CLI has a flag for them: the
-JAX docstring's ``--profile_steps`` exists in no JAX module either.
+No CLI has a flag for a trace: the JAX docstring's ``--profile_steps``
+exists in no JAX module either.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import os
-import time
-from typing import List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+# the private names span() rests on: (module, attribute)
+PRIVATE_NAMES = ((torch._C._profiler, "_RecordFunctionFast"),
+                 (_autograd_profiler, "_is_profiler_enabled"))
+
+
+def _private_names_present():
+    missing = [f"{module.__name__}.{name}" for module, name in PRIVATE_NAMES
+               if not hasattr(module, name)]
+    if missing:
+        raise ImportError(
+            f"utils.profiling.span needs {', '.join(missing)}, which torch "
+            f"{torch.__version__} does not have")
+
+
+_private_names_present()
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """A profiler range called ``name`` while a profile records, else a
+    shared null context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -37,47 +72,3 @@ def trace(logdir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(logdir)):
         yield
-
-
-class StepTimer:
-    """Call ``tick()`` once a step; the durations between ticks give
-    ``steps_per_sec`` and ``percentile_ms``, logged every ``log_every``
-    durations (0: never)."""
-
-    def __init__(self, log_every: int = 50, name: str = "train"):
-        self.log_every = log_every
-        self.name = name
-        self._durations: List[float] = []
-        self._last: Optional[float] = None
-
-    def tick(self) -> None:
-        now = time.time()
-        if self._last is not None:
-            self._durations.append(now - self._last)
-            if self.log_every and len(self._durations) % self.log_every == 0:
-                self.log()
-        self._last = now
-
-    def reset(self) -> None:
-        self._durations = []
-        self._last = None
-
-    @property
-    def steps_per_sec(self) -> float:
-        if not self._durations:
-            return 0.0
-        return len(self._durations) / sum(self._durations)
-
-    def percentile_ms(self, q: float) -> float:
-        """The duration at percentile ``q`` (nearest rank below), in ms."""
-        if not self._durations:
-            return 0.0
-        xs = sorted(self._durations)
-        i = min(int(q / 100 * len(xs)), len(xs) - 1)
-        return xs[i] * 1000.0
-
-    def log(self) -> None:
-        logging.info(
-            "%s: %.2f steps/s (p50 %.1f ms, p90 %.1f ms, n=%d)",
-            self.name, self.steps_per_sec, self.percentile_ms(50),
-            self.percentile_ms(90), len(self._durations))

@@ -1118,6 +1118,89 @@ def test_trace_records_the_card_s_kernels(card, tmp_path):
                for ev in events)
 
 
+def _step_examples():
+    # five utterances in the dataset's schema, two of them silent
+    rng = np.random.default_rng(0)
+    out = []
+    for t, silent in ((55, True), (40, False), (71, True), (33, False),
+                      (28, False)):
+        tt = t + 7 if silent else t
+        ex = {"emg": rng.normal(size=(t, 112)).astype(np.float32),
+              "raw_emg": rng.normal(size=(t * 8, 8)).astype(np.float32),
+              "session_ids": np.zeros(t, np.int64), "silent": silent,
+              "text": "a test",
+              "text_int": rng.integers(0, 37, size=12).astype(np.int64),
+              "phonemes": rng.integers(0, 48, size=tt).astype(np.int64)}
+        key = "parallel_voiced_audio_features" if silent \
+            else "audio_features"
+        ex[key] = rng.normal(size=(tt, 80)).astype(np.float32)
+        out.append(ex)
+    return out
+
+
+def test_trace_places_a_step_s_kernels_in_the_program_s_spans(card,
+                                                              tmp_path):
+    # one transduction step at small widths, dropout on, under trace():
+    # every launch falls inside ssp.step's time, the backward's on
+    # autograd's thread while the stepping thread is in ssp.backward, the
+    # dropout masks' inside ssp.dropout.mask on the thread that draws them
+    # (both threads); no span is drawn on the device
+    import json
+
+    from silent_speech_tpu_torch.config import (DataConfig,
+                                                TransductionTrainConfig)
+    from silent_speech_tpu_torch.data.device_cache import DeviceCorpus
+    from silent_speech_tpu_torch.train.transduction import \
+        TransductionTrainer
+    from silent_speech_tpu_torch.utils.profiling import trace
+
+    cfg = ModelConfig(model_size=64, num_layers=2, num_heads=2,
+                      dim_feedforward=128, relative_positional_distance=16,
+                      compute_dtype="float32", dropout=0.2)
+    trainer = TransductionTrainer(
+        cfg, DataConfig(seq_len=64, chunk_bucket=4, utt_cap=8, t_cap=128),
+        TransductionTrainConfig(max_batch_len=4000), device="cuda")
+    trainer.init_state(0)
+    corpus = DeviceCorpus.build(_step_examples(), "cuda")
+    assert trainer.train_step_ids(corpus, [4, 0, 3, 2], 1e-3) is not None
+    torch.cuda.synchronize()
+    with trace(str(tmp_path)):
+        trainer.train_step_ids(corpus, [1, 2, 0], 1e-3)
+        torch.cuda.synchronize()
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") == "cpu_op" \
+                and ev["name"].startswith("ssp."):
+            spans.setdefault(ev["name"], []).append(
+                (ev["tid"], ev["ts"], ev["ts"] + ev["dur"]))
+    launch = {ev["args"]["correlation"]: (ev["tid"], ev["ts"])
+              for ev in events if ev.get("cat") == "cuda_runtime"
+              and "correlation" in ev.get("args", {})}
+    kernels = [launch[ev["args"]["correlation"]] for ev in events
+               if ev.get("cat") == "kernel"
+               and ev.get("args", {}).get("correlation") in launch]
+    assert kernels
+    assert not [ev for ev in events if ev.get("cat") == "gpu_user_annotation"
+                and ev["name"].startswith("ssp.")]
+    (step,) = spans["ssp.step"]
+    stepping = step[0]
+
+    def launched_in(name, any_thread):
+        return [(tid, t) for tid, t in kernels
+                if any(s <= t <= e and (tid == own or any_thread)
+                       for own, s, e in spans[name]
+                       if own == stepping or not any_thread)]
+
+    assert len(launched_in("ssp.step", True)) == len(kernels)
+    # the backward's seed gradient fills on the stepping thread, the rest
+    # launches on autograd's
+    assert {tid for tid, _ in launched_in("ssp.backward", True)} - {stepping}
+    masks = {tid for tid, _ in launched_in("ssp.dropout.mask", False)}
+    assert stepping in masks and masks - {stepping}
+
+
 # ---- the dropout-cell offsets of K1f and K1b, and the mesh -------------
 SHARD = dict(b_offset=3, h_offset=4, h_total=12)
 
