@@ -67,8 +67,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    timed steps on the bench's 4 example sets packed on the host to the
    reference capacity (120 chunks of 200 frames, 64 utterances, t_cap
    1024), with the counts zeroed just before
-   and read just after: 6 forward and 6 backward attention launches and 1
-   DTW launch (when the batch has silent utterances) a step. Every loss is
+   and read just after: 6 forward and 6 backward attention launches, 1
+   DTW launch (when the batch has silent utterances) and 36 dropout
+   launches (30 masks, 6 ReLU-dropout backwards; every training path
+   counts them) a step. Every loss is
    finite and the weights and BatchNorm statistics move. One eval step.
    Two steps from one state on one batch must give torch.equal gradients
    (the step runs under cuDNN's deterministic algorithms), and the step
@@ -207,7 +209,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    a worker process), both also in ns a step of the dependent chain
    and S-corpus against its scratch's traffic, both chain-bound kernels
    also against a latency bound (the chain's length times its dependent
-   FP32 operations a step at the maximum SM clock), and
+   FP32 operations a step at the maximum SM clock), the dropout kernels
+   (``csrc/dropout.cu``) at 24,000 token rows of widths 3072 and 768, bf16
+   and f32, against their byte bound and the plain version, and
    profile one forward and one training step (device busy time, idle
    share, kernels by time).
 
@@ -301,6 +305,8 @@ FILTER_INPUTS = os.path.join(ROOT, "build", "filtfilt_corpus_inputs.pt")
 # CTC kernel vs plain: float32, the same operations; the NLL to 1e-6
 # relative (an infeasible row's ~1e5 included), the gradient to 1e-5 of its
 # largest entry (the backward's sums in another order)
+# the dropout kernels' timing shape: the transduction step's token rows
+DROPOUT_ROWS = 120 * 200
 CTC_NLL_RTOL = 1e-6
 CTC_GRAD_RTOL = 1e-5
 # the on-disk phase's corpus: the port's own generator, learnable signals,
@@ -1548,6 +1554,7 @@ def swapped(module, name, fn):
 
 def reset_launches():
     from silent_speech_tpu_torch.ops.ctc import ctc_nll
+    from silent_speech_tpu_torch.ops.dropout import mask_scale, relu_dropout
     from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
     from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
     from silent_speech_tpu_torch.ops.rel_attention import (
@@ -1558,10 +1565,12 @@ def reset_launches():
     dtw_align_batch.launches = dtw_align_batch.dp_only_launches = 0
     ctc_nll.launches = ctc_nll.backward_launches = 0
     filtfilt_chain.launches = 0
+    mask_scale.launches = relu_dropout.backward_launches = 0
 
 
 def read_launches():
     from silent_speech_tpu_torch.ops.ctc import ctc_nll
+    from silent_speech_tpu_torch.ops.dropout import mask_scale, relu_dropout
     from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
     from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
     from silent_speech_tpu_torch.ops.rel_attention import (
@@ -1573,7 +1582,9 @@ def read_launches():
                      "dtw_align_dp_only": dtw_align_batch.dp_only_launches,
                      "ctc": ctc_nll.launches,
                      "ctc_bwd": ctc_nll.backward_launches,
-                     "filtfilt_chain": filtfilt_chain.launches},
+                     "filtfilt_chain": filtfilt_chain.launches,
+                     "dropout": mask_scale.launches,
+                     "dropout_relu_bwd": relu_dropout.backward_launches},
                     f32={"rel_attention_fwd": rel_attention.f32_launches,
                          "rel_attention_bwd":
                              rel_attention_bwd.f32_launches})
@@ -1602,8 +1613,19 @@ class Launches(dict):
 def launch_counts(**counts):
     """A ``read_launches()`` dict with ``counts`` and 0 for the rest."""
     names = ("rel_attention_fwd", "rel_attention_bwd", "dtw_align",
-             "dtw_align_dp_only", "ctc", "ctc_bwd", "filtfilt_chain")
+             "dtw_align_dp_only", "ctc", "ctc_bwd", "filtfilt_chain",
+             "dropout", "dropout_relu_bwd")
     return Launches({name: counts.get(name, 0) for name in names})
+
+
+def dropout_counts(layers: int, steps: int) -> dict:
+    """The dropout kernels' launches of ``steps`` training steps or
+    micro-steps at rate > 0 (``csrc/dropout.cu``): a layer's two residual
+    masks forward and regenerated backward and its FFN's ReLU dropout
+    forward (``dropout``, 5 a layer), and the ReLU dropout's backward
+    (``dropout_relu_bwd``, 1 a layer): 36 a step at 6 layers."""
+    return {"dropout": 5 * layers * steps,
+            "dropout_relu_bwd": layers * steps}
 
 
 def train(card):
@@ -1662,11 +1684,13 @@ def train(card):
     expected = launch_counts(
         rel_attention_fwd=layers * n_steps,
         rel_attention_bwd=layers * n_steps,
-        dtw_align=sum(1 for b in order if b.num_silent))
+        dtw_align=sum(1 for b in order if b.num_silent),
+        **dropout_counts(layers, n_steps))
     log(f"[train] {n_steps} steps, launches {launches} (expected "
         f"{expected})")
     if launches != expected or not all(expected[k] for k in (
-            "rel_attention_fwd", "rel_attention_bwd", "dtw_align")):
+            "rel_attention_fwd", "rel_attention_bwd", "dtw_align",
+            "dropout", "dropout_relu_bwd")):
         raise AssertionError(f"training launches {launches}, expected "
                              f"{expected}, each kernel of the path above 0")
     loss_values = torch.stack(step_losses).cpu().numpy()
@@ -1790,7 +1814,8 @@ def f32_train(card, batch, lr):
     n = F32_TIMED_STEPS
     expected = launch_counts(rel_attention_fwd=layers * n,
                              rel_attention_bwd=layers * n,
-                             dtw_align=n if batch.num_silent else 0)
+                             dtw_align=n if batch.num_silent else 0,
+                             **dropout_counts(layers, n))
     f32_expected = {"rel_attention_fwd": layers * n,
                     "rel_attention_bwd": layers * n}
     log(f"[train.f32] {n} float32 steps: launches {launches}, on the f32 "
@@ -2142,7 +2167,8 @@ def train_run(card, work):
         rel_attention_fwd=layers * (len(steps) + len(evals)),
         rel_attention_bwd=layers * len(steps),
         dtw_align=sum(1 for n in silent if n)
-        + sum(1 for (batch, *_), _ in evals if batch.num_silent))
+        + sum(1 for (batch, *_), _ in evals if batch.num_silent),
+        **dropout_counts(layers, len(steps)))
     log(f"[fit] launches in the fit() and resume windows {fit_launches} "
         f"(expected {expected}: 6 forward and 6 backward attention and a "
         f"DTW a step, 6 forward attention and a DTW a validation batch)")
@@ -2336,7 +2362,7 @@ def recognition_run(card, work):
     ok = (torch.equal(loss_a, loss_b) and not differ
           and counts == launch_counts(rel_attention_fwd=layers,
                                       rel_attention_bwd=layers, ctc=1,
-                                      ctc_bwd=1))
+                                      ctc_bwd=1, **dropout_counts(layers, 1)))
     log(f"[rec] two micro-steps from one state on one batch: losses "
         f"{loss_a.item():.6f} and {loss_b.item():.6f}, all {len(grads_a)} "
         f"gradients torch.equal: {not differ}"
@@ -2429,7 +2455,7 @@ def recognition_run(card, work):
     expected = launch_counts(
         rel_attention_fwd=layers * (len(steps) + len(wers) * len(dev_set)),
         rel_attention_bwd=layers * len(steps), ctc=len(steps),
-        ctc_bwd=len(steps))
+        ctc_bwd=len(steps), **dropout_counts(layers, len(steps)))
     losses = torch.stack(steps).cpu().numpy()
     emit = [i % 2 == 1 for i in range(len(steps))]
     log(f"[rec] fit(): {len(calls['ids'])} micro-steps in {FIT_EPOCHS} "
@@ -3001,7 +3027,8 @@ def disk_run(card, work):
         rel_attention_fwd=layers * (len(steps) + len(evals) + 1
                                     + len(devset)),
         rel_attention_bwd=layers * len(steps),
-        dtw_align=sum(steps) + sum(evals), filtfilt_chain=1)
+        dtw_align=sum(steps) + sum(evals), filtfilt_chain=1,
+        **dropout_counts(layers, len(steps)))
     finished = log_lines(os.path.join(run, "log.txt"), "finished epoch")
     built = log_lines(os.path.join(run, "log.txt"), "building the device")
     skipped = log_lines(os.path.join(run, "log.txt"), "ASR WER skipped")
@@ -3150,7 +3177,8 @@ def disk_run(card, work):
     expected = launch_counts(
         rel_attention_fwd=layers * (len(steps) + len(devset)),
         rel_attention_bwd=layers * len(steps), ctc=len(steps),
-        ctc_bwd=len(steps), filtfilt_chain=1)
+        ctc_bwd=len(steps), filtfilt_chain=1,
+        **dropout_counts(layers, len(steps)))
     finished = log_lines(os.path.join(rec_run, "log.txt"), "finished epoch")
     log(f"[disk] recognition CLI, 1 epoch: {len(steps)} micro-step(s), "
         f"{updates} update(s), {len(devset)} validation utterances in "
@@ -3770,6 +3798,68 @@ def time_kernels(card, path_launches, errs, dtw_inputs, aligned_inputs,
     ]
 
 
+def time_dropout(card, path_launches=None):
+    """Phase 8, the dropout kernels (``csrc/dropout.cu``) at the
+    transduction step's sites, ``DROPOUT_ROWS`` token rows at width 3072
+    (the FFN's ReLU dropout and its backward) and 768 (the residual
+    masks), bf16 and f32: each output torch.equal to the plain version's,
+    then ms a launch queued behind a sleeping kernel (the device's time)
+    against the byte bound (each input read once, the output written
+    once) and the plain version's ms. Runs alone too (``path_launches``
+    None). Returns the kernels JSON entry."""
+    import torch
+    from silent_speech_tpu_torch.ops.dropout import (
+        _launch_relu_bwd, dropout_threshold, mask_scale, mask_scale_plain,
+        relu_dropout_backward_plain)
+
+    thr, seed = dropout_threshold(0.2), 2 ** 31 - 7
+    timings = []
+    for dtype in (torch.bfloat16, torch.float32):
+        item = torch.finfo(dtype).bits // 8
+        for width, relu in ((3072, True), (768, False)):
+            g = torch.Generator(device="cuda").manual_seed(width)
+            x, dy = (torch.randn(DROPOUT_ROWS, width, device="cuda",
+                                 generator=g).to(dtype) for _ in range(2))
+            y = mask_scale(x, seed, thr, relu=relu)
+            cases = [("relu_mask_scale" if relu else "mask_scale", 2,
+                      lambda: mask_scale(x, seed, thr, relu=relu),
+                      lambda: mask_scale_plain(x, seed, thr, relu=relu))]
+            if relu:
+                cases.append(("relu_dropout_bwd", 3,
+                              lambda: _launch_relu_bwd(dy, y, thr),
+                              lambda: relu_dropout_backward_plain(dy, y,
+                                                                  thr)))
+            for name, passes, kernel, plain in cases:
+                same = torch.equal(kernel(), plain())
+                ms = queued_ms(kernel)
+                plain_ms = cuda_time_ms(plain, iters=5, warmup=1)
+                bound_ms = passes * x.numel() * item / HBM_BYTES_PER_S * 1e3
+                shape = f"{DROPOUT_ROWS}x{width} {str(dtype)[6:]}"
+                log(f"[time] {card} | dropout {name} (csrc/dropout.cu) "
+                    f"{shape}, dropout 0.2: torch.equal to the plain "
+                    f"version: {same}; kernel {ms:.4f} ms/launch (queued: "
+                    f"the device's time), plain {plain_ms:.4f} ms, bound "
+                    f"{bound_ms:.5f} ms (bytes: {passes} x "
+                    f"{x.numel() * item} B), {bound_ms / ms:.2%} of bound")
+                if not same:
+                    raise AssertionError(f"dropout {name} at {shape} "
+                                         f"differs from the plain version")
+                timings.append({"kernel": name, "shape": shape, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": "bytes"})
+            del x, dy, y
+    by_path = {path: (counts["dropout"], counts["dropout_relu_bwd"])
+               for path, counts in (path_launches or {}).items()}
+    return {"name": "dropout", "route": "cuda",
+            "source": "silent_speech_tpu_torch/csrc/dropout.cu",
+            "replaces": "silent_speech_tpu/ops/dropout.py",
+            "pallas": False,
+            "launches": sum(sum(v) for v in by_path.values()),
+            "launches_by_path": {k: sum(v) for k, v in by_path.items()},
+            "launches_relu_bwd": sum(v[1] for v in by_path.values()),
+            "library_ms": None, "timings": timings}
+
+
 def filtfilt_bounds(lengths, t_pad, c, coeffs):
     """The filter chain's byte bound (each valid input sample read once,
     the padded output written once) and operation bound, the chain's
@@ -3973,7 +4063,8 @@ def mesh_run(card):
         layers = plain.model_cfg.num_layers
         expected = launch_counts(
             rel_attention_fwd=layers, rel_attention_bwd=layers,
-            dtw_align=1 if batches[0].num_silent else 0)
+            dtw_align=1 if batches[0].num_silent else 0,
+            **dropout_counts(layers, 1))
         if step_launches != expected:
             raise AssertionError(f"mesh step launches {step_launches}, "
                                  f"expected {expected}")
@@ -4243,6 +4334,7 @@ def main() -> int:
                                aligned_inputs, rec_ctc, f32_step)
         kernels.append(time_filtfilt(card, path_launches, corpus_inputs,
                                      errs, build_s, stream_latency, group))
+        kernels.append(time_dropout(card, path_launches))
     del group
     lap("timings")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the card was "

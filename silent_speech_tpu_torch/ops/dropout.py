@@ -15,20 +15,28 @@ one-process mask: a ``Shard`` gives its rows' offset and its columns'
 offset and count in the whole, and each element takes the bits of its
 index in the whole, ``(row0 + r)·cols + col0 + c``.
 
-These are XLA fusions in the JAX package, not Pallas kernels, so the port
-runs them as plain PyTorch tensor code on either device. uint32
-arithmetic runs on int64 tensors, masked to 32 bits after every multiply:
-the int64 product of two 32-bit values may wrap, but its low 32 bits are
-right.
+These are XLA fusions in the JAX package, not Pallas kernels. On a CUDA
+tensor ``mask_scale`` (mask, scale and the optional ReLU) and the ReLU
+dropout's backward launch ``csrc/dropout.cu``: one pass over the tensor
+a site, the bits drawn in the kernel, the scale passed by value (no copy
+to the card, no stream sync); bf16 and f32, contiguous. CPU tensors take
+the plain versions, ``mask_scale_plain`` and
+``relu_dropout_backward_plain``: plain PyTorch tensor code, the oracle of
+the tests, whose uint32 arithmetic runs on int64 tensors, masked to 32
+bits after every multiply (the int64 product of two 32-bit values may
+wrap, but its low 32 bits are right).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..utils.profiling import span
+from . import build
 
 M32 = 0xFFFFFFFF
 
@@ -96,26 +104,139 @@ def _scale(threshold: int, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(1.0 / (1.0 - threshold / 256.0), dtype=dtype)
 
 
-def mask_scale(x: torch.Tensor, seed: int, threshold: int,
-               shard: Optional[Shard] = None) -> torch.Tensor:
-    """``x`` with the dropped elements zeroed and the kept ones scaled."""
+@functools.lru_cache(maxsize=None)
+def _scale_value(threshold: int, dtype: torch.dtype) -> float:
+    """``_scale`` as the Python float the kernels take by value."""
+    return float(_scale(threshold, dtype))
+
+
+def mask_scale_plain(x: torch.Tensor, seed: int, threshold: int,
+                     shard: Optional[Shard] = None,
+                     relu: bool = False) -> torch.Tensor:
+    """``x`` (after a ReLU with ``relu``) with the dropped elements zeroed
+    and the kept ones scaled, in plain tensor code on any device."""
+    if relu:
+        x = torch.relu(x)
     keep = keep_mask(x.shape, seed, threshold, x.device, shard)
     return torch.where(keep, x * _scale(threshold, x.dtype).to(x.device),
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def relu_dropout_backward_plain(g: torch.Tensor, y: torch.Tensor,
+                                threshold: int) -> torch.Tensor:
+    """The ReLU dropout's input gradient from its output ``y``: ``g``
+    scaled where ``y > 0``, else 0."""
+    return torch.where(y > 0, g * _scale(threshold, g.dtype).to(g.device),
+                       torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check(*tensors: torch.Tensor) -> None:
+    """What the kernels take: contiguous bf16 or f32 tensors of one dtype
+    and shape (``ValueError`` otherwise)."""
+    first = tensors[0]
+    for t in tensors:
+        if t.dtype not in KERNEL_DTYPES:
+            raise ValueError(f"the dropout kernels take bfloat16 or float32, "
+                             f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the dropout kernels take contiguous tensors")
+        if t.dtype != first.dtype or t.shape != first.shape:
+            raise ValueError(f"{t.dtype} {tuple(t.shape)} beside "
+                             f"{first.dtype} {tuple(first.shape)}")
+
+
+def _geometry(shape, shard: Optional[Shard] = None
+              ) -> Tuple[int, int, int, int, int, int]:
+    """The kernel's index arguments for a tensor of ``shape`` that
+    ``shard`` places: (n, width, base, row0, col0, cols). Its element i
+    (row-major) takes the index ``base + i`` when it holds whole rows
+    (``col0`` 0 and ``cols`` its width; ``base = row0·cols``), else
+    ``(row0 + i // width)·cols + col0 + i % width``, as in ``keep_mask``."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    width = int(shape[-1]) if len(shape) else 1
+    row0, col0, cols = shard or Shard()
+    cols = width if cols is None else cols
+    return n, width, row0 * cols, row0, col0, cols
+
+
+def _raise_on(lib, entry: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: "
+                           f"{lib.dropout_error_string(err).decode()} "
+                           f"(cudaError {err})")
+
+
+def _launch_mask_scale(x, seed, threshold, shard, relu):
+    _check(x)
+    n, width, base, row0, col0, cols = _geometry(x.shape, shard)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if n == 0:
+        return y
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dropout_mask_scale(
+            x.data_ptr(), y.data_ptr(), n, width, base, row0, col0, cols,
+            seed & M32, threshold, _scale_value(threshold, x.dtype),
+            int(relu), int(x.dtype == torch.bfloat16), stream)
+    _raise_on(lib, "dropout_mask_scale", err)
+    mask_scale.launches += 1
+    return y
+
+
+def _launch_relu_bwd(g, y, threshold):
+    _check(g, y)
+    out = torch.empty(g.shape, dtype=g.dtype, device=g.device)
+    if g.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.dropout_relu_bwd(
+            g.data_ptr(), y.data_ptr(), out.data_ptr(), g.numel(),
+            _scale_value(threshold, g.dtype),
+            int(g.dtype == torch.bfloat16), stream)
+    _raise_on(lib, "dropout_relu_bwd", err)
+    relu_dropout.backward_launches += 1
+    return out
+
+
+def mask_scale(x: torch.Tensor, seed: int, threshold: int,
+               shard: Optional[Shard] = None,
+               relu: bool = False) -> torch.Tensor:
+    """``x`` (after a ReLU with ``relu``) with the dropped elements zeroed
+    and the kept ones scaled. A CUDA tensor (contiguous, bf16 or f32)
+    launches ``csrc/dropout.cu`` once; a CPU tensor takes
+    ``mask_scale_plain``."""
+    if x.device.type == "cpu":
+        return mask_scale_plain(x, seed, threshold, shard, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"no mask_scale for device {x.device}")
+    with span("ssp.dropout.mask"):
+        return _launch_mask_scale(x, seed, threshold, shard, relu)
+
+
+# kernel launches since the last reset
+mask_scale.launches = 0
 
 
 class _RegenDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seed, threshold, shard):
         ctx.seed, ctx.threshold, ctx.shard = seed, threshold, shard
-        return mask_scale(x, seed, threshold, shard)
+        return mask_scale(x.contiguous(), seed, threshold, shard)
 
     @staticmethod
     def backward(ctx, g):
         # the same bits from the same seed: the mask is recomputed, not
         # saved
-        return (mask_scale(g, ctx.seed, ctx.threshold, ctx.shard), None,
-                None, None)
+        return (mask_scale(g.contiguous(), ctx.seed, ctx.threshold,
+                           ctx.shard), None, None, None)
 
 
 def regen_dropout(x: torch.Tensor, seed: int, threshold: int,
@@ -130,7 +251,7 @@ def regen_dropout(x: torch.Tensor, seed: int, threshold: int,
 class _ReluDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seed, threshold, shard):
-        y = mask_scale(torch.relu(x), seed, threshold, shard)
+        y = mask_scale(x.contiguous(), seed, threshold, shard, relu=True)
         ctx.save_for_backward(y)
         ctx.threshold = threshold
         return y
@@ -138,10 +259,11 @@ class _ReluDropout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
-        scale = _scale(ctx.threshold, g.dtype).to(g.device)
-        return (torch.where(y > 0, g * scale,
-                            torch.zeros((), dtype=g.dtype, device=g.device)),
-                None, None, None)
+        if g.device.type == "cpu":
+            dx = relu_dropout_backward_plain(g, y, ctx.threshold)
+        else:
+            dx = _launch_relu_bwd(g.contiguous(), y, ctx.threshold)
+        return dx, None, None, None
 
 
 def relu_dropout(x: torch.Tensor, seed: int, threshold: int,
@@ -152,3 +274,24 @@ def relu_dropout(x: torch.Tensor, seed: int, threshold: int,
     if threshold == 0:
         return torch.relu(x)
     return _ReluDropout.apply(x, seed, threshold, shard)
+
+
+# backward kernel launches since the last reset (its forward launches
+# count under mask_scale.launches)
+relu_dropout.backward_launches = 0
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.load("dropout")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dropout_mask_scale.argtypes = [
+        ptr, ptr, i64, i32, i64, i64, i64, i64, ctypes.c_uint, i32,
+        ctypes.c_float, i32, i32, ptr]
+    lib.dropout_mask_scale.restype = i32
+    lib.dropout_relu_bwd.argtypes = [ptr, ptr, ptr, i64, ctypes.c_float,
+                                     i32, ptr]
+    lib.dropout_relu_bwd.restype = i32
+    lib.dropout_error_string.argtypes = [i32]
+    lib.dropout_error_string.restype = ctypes.c_char_p
+    return lib

@@ -2,8 +2,9 @@
 
 - ``span(name)``: the context manager the training step opens around
   itself and its phases (``ssp.step`` around ``ssp.assemble``,
-  ``ssp.loss`` and ``ssp.backward``), and ``keep_mask`` around each
-  dropout mask it builds (``ssp.dropout.mask``). While a
+  ``ssp.loss`` and ``ssp.backward``), and ``ops/dropout.py`` around each
+  dropout mask (``ssp.dropout.mask``: ``keep_mask`` on a CPU tensor, the
+  dropout kernel's launch on the card). While a
   ``torch.profiler`` profile records, it is a range of the profiler's own,
   on the clock the card's kernels are traced on, so a kernel belongs to
   the span its launch was issued in; otherwise it is one shared null

@@ -15,6 +15,9 @@ from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.ops import rel_attention as attention_module
 from silent_speech_tpu_torch.ops.ctc import (MAX_LABELS, ctc_grad_plain,
                                              ctc_nll, ctc_nll_plain)
+from silent_speech_tpu_torch.ops.dropout import (
+    Shard, _launch_relu_bwd, dropout_threshold, mask_scale, mask_scale_plain,
+    regen_dropout, relu_dropout, relu_dropout_backward_plain)
 from silent_speech_tpu_torch.ops.dtw import (MAX_ROWS, dtw_align_batch,
                                              dtw_align_batch_plain)
 from silent_speech_tpu_torch.ops.rel_attention import (
@@ -1295,3 +1298,147 @@ def test_mesh_asks_a_card_a_rank(card):
 
     with pytest.raises(RuntimeError, match="cards"):
         dryrun_multichip(torch.cuda.device_count() + 1, "cuda")
+
+
+# ---- the counter-hash dropout (ops/dropout.py, csrc/dropout.cu) ----------
+DROP8 = dropout_threshold(0.2)
+DROPOUT_OPS = {"regen": regen_dropout, "relu": relu_dropout}
+
+
+def _drop_input(shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to("cuda", dtype)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _dropout_launches():
+    return mask_scale.launches, relu_dropout.backward_launches
+
+
+def _dropout_run(op, x, g, seed, shard=None):
+    """The forward and the input gradient of ``op`` on ``x`` through
+    autograd, the cotangent ``g``."""
+    xi = x.detach().clone().requires_grad_()
+    y = DROPOUT_OPS[op](xi, seed, DROP8, shard)
+    y.backward(g)
+    return y.detach(), xi.grad
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("op", ["regen", "relu"])
+@pytest.mark.parametrize("shape,shard", [
+    ((120, 200, 768), None),            # the training step's norm sites
+    ((120, 200, 3072), None),           # and its FFN
+    ((3, 7, 13), None),                 # an odd count, width not of 8
+    ((5, 100), None),
+    ((3, 13), Shard(1)),                # base % 4 == 1, 2, 3
+    ((3, 13), Shard(2)),
+    ((3, 13), Shard(3)),
+    ((2, 50, 768), Shard(4, 768, 3072)),  # a model rank's FFN columns
+    ((4, 100), Shard(5, 37, 301)),      # groups across a row's end
+    ((3, 13), Shard(2 ** 31 + 1)),      # hash words past 2^32
+], ids=["w768", "w3072", "odd", "w100", "base1", "base2", "base3", "ffn",
+        "cols", "words64"])
+def test_dropout_kernels_match_plain_and_repeat(card, dtype, op, shape,
+                                                shard):
+    # the forward and the gradient torch.equal to the plain path, and bit
+    # for bit the same in two calls
+    x, g = _drop_input(shape, dtype, 1), _drop_input(shape, dtype, 2)
+    before = _dropout_launches()
+    runs = [_dropout_run(op, x, g, 77, shard) for _ in range(2)]
+    torch.cuda.synchronize()
+    masks, relu_bwd = (a - b for a, b in zip(_dropout_launches(), before))
+    assert (masks, relu_bwd) == ((4, 0) if op == "regen" else (2, 2))
+    want_y = mask_scale_plain(x, 77, DROP8, shard, relu=op == "relu")
+    want_g = (mask_scale_plain(g, 77, DROP8, shard) if op == "regen"
+              else relu_dropout_backward_plain(g, want_y, DROP8))
+    for y, grad in runs:
+        assert torch.equal(y, want_y)
+        assert torch.equal(grad, want_g)
+    assert torch.equal(_bits(runs[0][0]), _bits(runs[1][0]))
+    assert torch.equal(_bits(runs[0][1]), _bits(runs[1][1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dropout_kernels_on_unaligned_buffers(card, dtype):
+    # contiguous views 2 or 4 bytes past a 16-byte boundary take the
+    # kernels' element-by-element loads and stores
+    shape = (7, 33)
+    n = 7 * 33
+    x = _drop_input((n + 1,), dtype, 3)[1:].view(shape)
+    g = _drop_input((n + 1,), dtype, 4)[1:].view(shape)
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    y = mask_scale(x, 5, DROP8, Shard(3), relu=True)
+    assert torch.equal(y, mask_scale_plain(x, 5, DROP8, Shard(3), relu=True))
+    y_off = torch.cat([y.new_zeros(1), y.reshape(-1)])[1:].view(shape)
+    assert y_off.data_ptr() % 16
+    assert torch.equal(_launch_relu_bwd(g, y_off, DROP8),
+                       relu_dropout_backward_plain(g, y, DROP8))
+
+
+@pytest.mark.parametrize("op", ["regen", "relu"])
+def test_dropout_at_threshold_0_launches_nothing(card, op):
+    x = _drop_input((4, 64), torch.bfloat16, 5).requires_grad_()
+    before = _dropout_launches()
+    y = DROPOUT_OPS[op](x, 3, 0)
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    assert _dropout_launches() == before
+    assert torch.equal(y, x if op == "regen" else torch.relu(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("op", ["regen", "relu"])
+def test_dropout_ops_do_not_sync_the_stream(card, op, dtype):
+    x = _drop_input((64, 768), dtype, 6)
+    g = _drop_input((64, 768), dtype, 7)
+    _dropout_run(op, x, g, 9)       # builds and loads the kernels
+    torch.cuda.synchronize()
+    before = _dropout_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, grad = _dropout_run(op, x, g, 9, Shard(2))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert _dropout_launches() != before
+    assert torch.equal(y, mask_scale_plain(x, 9, DROP8, Shard(2),
+                                           relu=op == "relu"))
+
+
+def test_dropout_rejects_what_the_kernels_do_not_take(card):
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        mask_scale(torch.zeros(4, 8, device="cuda", dtype=torch.float16), 1,
+                   DROP8)
+    with pytest.raises(ValueError, match="contiguous"):
+        mask_scale(torch.zeros(8, 4, device="cuda").t(), 1, DROP8)
+
+
+def test_a_transduction_micro_step_launches_36_dropout_kernels(card):
+    # 6 layers, each: the residual masks of norm1 and norm2 forward and
+    # regenerated backward (4), the FFN's ReLU dropout forward (1) and
+    # its backward (1)
+    from silent_speech_tpu_torch.config import (DataConfig,
+                                                TransductionTrainConfig)
+    from silent_speech_tpu_torch.data.device_cache import DeviceCorpus
+    from silent_speech_tpu_torch.train.transduction import \
+        TransductionTrainer
+
+    cfg = ModelConfig(model_size=64, num_layers=6, num_heads=2,
+                      dim_feedforward=128, relative_positional_distance=16,
+                      dropout=0.2)
+    trainer = TransductionTrainer(
+        cfg, DataConfig(seq_len=64, chunk_bucket=4, utt_cap=8, t_cap=128),
+        TransductionTrainConfig(max_batch_len=4000), device="cuda")
+    trainer.init_state(0)
+    corpus = DeviceCorpus.build(_step_examples(), "cuda")
+    assert trainer.train_step_ids(corpus, [4, 0, 3, 2], 1e-3) is not None
+    torch.cuda.synchronize()
+    before = _dropout_launches()
+    assert trainer.train_step_ids(corpus, [1, 2, 0], 1e-3) is not None
+    torch.cuda.synchronize()
+    masks, relu_bwd = (a - b for a, b in zip(_dropout_launches(), before))
+    assert (masks, relu_bwd) == (30, 6)
