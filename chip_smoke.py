@@ -79,7 +79,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    versions swapped in (same seeds, so the same dropout masks), and the
    ``--compute_dtype float32`` path timed: one warm-up step and 3 steps
    (ms a step), their launches counted (6 K1f and 6 K1b a step on the f32
-   routes: the kernels line's ``f32-train`` path), then one step under the
+   routes: the kernels line's ``f32-train`` path; every step with TF32 off,
+   counted by ``utils.device.full_fp32``), then one step under the
    profiler (K1b f32's device ms in it);
 5. the training run: the bench's device corpus of 4 example sets on the
    card (``silent_speech_tpu_torch/bench.py``), one batch gathered there
@@ -1559,6 +1560,7 @@ def reset_launches():
     from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
     from silent_speech_tpu_torch.ops.rel_attention import (
         rel_attention, rel_attention_bwd)
+    from silent_speech_tpu_torch.utils.device import full_fp32
 
     rel_attention.launches = rel_attention_bwd.launches = 0
     rel_attention.f32_launches = rel_attention_bwd.f32_launches = 0
@@ -1566,6 +1568,7 @@ def reset_launches():
     ctc_nll.launches = ctc_nll.backward_launches = 0
     filtfilt_chain.launches = 0
     mask_scale.launches = relu_dropout.backward_launches = 0
+    full_fp32.steps = 0
 
 
 def read_launches():
@@ -1575,6 +1578,7 @@ def read_launches():
     from silent_speech_tpu_torch.ops.filtfilt import filtfilt_chain
     from silent_speech_tpu_torch.ops.rel_attention import (
         rel_attention, rel_attention_bwd)
+    from silent_speech_tpu_torch.utils.device import full_fp32
 
     return Launches({"rel_attention_fwd": rel_attention.launches,
                      "rel_attention_bwd": rel_attention_bwd.launches,
@@ -1587,24 +1591,29 @@ def read_launches():
                      "dropout_relu_bwd": relu_dropout.backward_launches},
                     f32={"rel_attention_fwd": rel_attention.f32_launches,
                          "rel_attention_bwd":
-                             rel_attention_bwd.f32_launches})
+                             rel_attention_bwd.f32_launches},
+                    full_fp32_steps=full_fp32.steps)
 
 
 class Launches(dict):
     """Launches by kernel; ``f32`` holds how many of the attention
     launches took the f32 routes (``csrc/rel_attention_fwd.cu``,
-    ``csrc/rel_attention_bwd.cu``). Comparisons look at the dict alone."""
+    ``csrc/rel_attention_bwd.cu``), and ``full_fp32_steps`` how many
+    training steps ran under ``utils.device.full_fp32`` (TF32 off).
+    Comparisons look at the dict alone."""
 
-    def __init__(self, counts, f32=None):
+    def __init__(self, counts, f32=None, full_fp32_steps=0):
         super().__init__(counts)
         self.f32 = dict(f32 or {"rel_attention_fwd": 0,
                                 "rel_attention_bwd": 0})
+        self.full_fp32_steps = full_fp32_steps
 
     def add(self, other):
         """Add ``other``'s counts, and its f32 share where it has one
         (else this one's f32 share is no longer known)."""
         for k, v in other.items():
             self[k] += v
+        self.full_fp32_steps += getattr(other, "full_fp32_steps", 0)
         theirs = getattr(other, "f32", None)
         self.f32 = (None if self.f32 is None or theirs is None
                     else {k: v + theirs[k] for k, v in self.f32.items()})
@@ -1820,12 +1829,17 @@ def f32_train(card, batch, lr):
                     "rel_attention_bwd": layers * n}
     log(f"[train.f32] {n} float32 steps: launches {launches}, on the f32 "
         f"routes {launches.f32} (expected {expected}, f32 {f32_expected}); "
-        f"loss {out.loss.item():.6f}")
+        f"{launches.full_fp32_steps} steps with TF32 off; loss "
+        f"{out.loss.item():.6f}")
     if (launches != expected or launches.f32 != f32_expected
             or not np.isfinite(out.loss.item())):
         raise AssertionError(f"float32 training launches {launches} (f32 "
                              f"{launches.f32}), expected {expected} (f32 "
                              f"{f32_expected}), and a finite loss")
+    if launches.full_fp32_steps != n:
+        raise AssertionError(f"{n} float32 steps ran, "
+                             f"{launches.full_fp32_steps} of them with TF32 "
+                             f"off (utils.device.full_fp32)")
     events = []
     prof = device_profile(card, "one float32 training step (B=120 chunks x "
                           "200)", lambda: tr.train_step(batch, lr), cpu=False,

@@ -42,6 +42,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..parallel.collectives import all_gather, all_reduce_sum
+from ..utils.profiling import span
 from .transformer import TransformerEncoder, linear, xavier_normal_
 
 
@@ -190,12 +191,13 @@ class EMGEncoder(nn.Module):
         if mesh is not None and train:
             b_offset = mesh.data_rank * x_raw.shape[0]
         h = x_raw.transpose(1, 2)
-        for i, block in enumerate(self.conv_blocks):
-            h = block(h, train)
-            if mesh is not None:
-                last = i == len(self.conv_blocks) - 1
-                h = all_gather(h, mesh.model_group, 1,
-                               "slice" if last else "sum")
+        with span("ssp.conv_stack"):
+            for i, block in enumerate(self.conv_blocks):
+                h = block(h, train)
+                if mesh is not None:
+                    last = i == len(self.conv_blocks) - 1
+                    h = all_gather(h, mesh.model_group, 1,
+                                   "slice" if last else "sum")
         h = linear(self.w_raw_in, h.transpose(1, 2), cdt)
         h = self.transformer(h, valid_len, generator, b_offset)
         out = linear(self.w_out, h, cdt).float()

@@ -60,7 +60,8 @@ from ..models.encoder import EMGEncoder
 from ..text import TextTransform, wer
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import data_sync
-from ..utils.device import deterministic_cudnn, resolve_device
+from ..utils.device import (deterministic_cudnn, resolve_device,
+                            step_precision)
 from ..utils.profiling import span
 from .checkpoint import (checkpoint_exists, export_reference_checkpoint,
                          restore_checkpoint, save_checkpoint)
@@ -172,7 +173,8 @@ class RecognitionTrainer:
             raise RuntimeError("call init_state() before a training step")
         for p in self.model.parameters():
             p.grad = None
-        with deterministic_cudnn():
+        with deterministic_cudnn(), \
+                step_precision(self.model.compute_dtype):
             raw = db.raw_emg
             if self.mesh is not None:
                 first, count = self.mesh.rows(raw.shape[0])

@@ -53,7 +53,8 @@ from ..ops.dtw import dtw_align_batch
 from ..phonemes import NUM_PHONES
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import data_sync
-from ..utils.device import deterministic_cudnn, resolve_device
+from ..utils.device import (deterministic_cudnn, resolve_device,
+                            step_precision)
 from ..utils.profiling import span
 from .checkpoint import (checkpoint_exists, export_reference_checkpoint,
                          is_writer, restore_checkpoint, save_checkpoint)
@@ -170,8 +171,9 @@ class TransductionTrainer:
         for p in self.model.parameters():
             p.grad = None
         # deterministic convolutions: two steps from one state on one
-        # batch give bit-equal gradients on the card, as in JAX
-        with deterministic_cudnn():
+        # batch give bit-equal gradients on the card, as in JAX; a float32
+        # step with TF32 off
+        with deterministic_cudnn(), step_precision(self.dtype):
             out = self._loss(db, n_silent, True, matmul_dtype=self.dtype)
             with span("ssp.backward"):
                 out.loss.backward()

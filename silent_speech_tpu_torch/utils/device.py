@@ -36,6 +36,36 @@ def deterministic_cudnn():
         torch.backends.cudnn.deterministic = old
 
 
+@contextlib.contextmanager
+def full_fp32():
+    """TF32 off inside, in cuBLAS and in cuDNN, both flags restored on
+    exit. ``torch.backends.cudnn.allow_tf32`` is True by default, so a
+    float32 convolution would otherwise multiply with a 10-bit mantissa.
+    The trainers run each float32 step under it, so that every product of
+    the step is the float32 its configuration states; ``full_fp32.steps``
+    counts the steps it wrapped."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full_fp32.steps += 1
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+full_fp32.steps = 0
+
+
+def step_precision(dtype: torch.dtype):
+    """The scope of a training step in ``dtype``: ``full_fp32()`` for
+    float32, else a null context (a bf16 step leaves the flags as they
+    are)."""
+    return full_fp32() if dtype == torch.float32 else contextlib.nullcontext()
+
+
 def card_info(device: Union[str, torch.device] = "cuda") -> str:
     """``<name>, <power limit>`` of the card behind ``device``, as
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``

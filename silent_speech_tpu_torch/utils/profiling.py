@@ -2,7 +2,8 @@
 
 - ``span(name)``: the context manager the training step opens around
   itself and its phases (``ssp.step`` around ``ssp.assemble``,
-  ``ssp.loss`` and ``ssp.backward``), and ``ops/dropout.py`` around each
+  ``ssp.loss`` and ``ssp.backward``), the encoder's forward around its
+  three ResBlocks (``ssp.conv_stack``), and ``ops/dropout.py`` around each
   dropout mask (``ssp.dropout.mask``: ``keep_mask`` on a CPU tensor, the
   dropout kernel's launch on the card). While a
   ``torch.profiler`` profile records, it is a range of the profiler's own,

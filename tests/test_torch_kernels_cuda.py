@@ -1204,6 +1204,62 @@ def test_trace_places_a_step_s_kernels_in_the_program_s_spans(card,
     assert stepping in masks and masks - {stepping}
 
 
+@pytest.mark.parametrize("kind", ["transduction", "recognition"])
+def test_a_float32_step_convolves_in_full_fp32(card, monkeypatch, kind):
+    # cuDNN's TF32 allowed outside, as torch's default has it: inside a
+    # float32 step every convolution agrees with float64 to float32's
+    # rounding; the same convolutions outside the step, TF32 on, part by
+    # far more (where cuDNN picks a TF32 kernel: at least one does)
+    from silent_speech_tpu_torch.config import (DataConfig,
+                                                RecognitionTrainConfig,
+                                                TransductionTrainConfig)
+    from silent_speech_tpu_torch.data.device_cache import DeviceCorpus
+    from silent_speech_tpu_torch.models import encoder
+    from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
+    from silent_speech_tpu_torch.train.transduction import \
+        TransductionTrainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    seen, conv = [], encoder._conv
+
+    def recording(module, x, dtype):
+        out = conv(module, x, dtype)
+        seen.append((x.detach().clone(), module.weight.detach().clone(),
+                     module.bias.detach().clone(), module.stride,
+                     module.padding, out.detach().clone()))
+        return out
+
+    monkeypatch.setattr(encoder, "_conv", recording)
+    cfg = ModelConfig(model_size=256, num_layers=1, num_heads=2,
+                      dim_feedforward=256, relative_positional_distance=16,
+                      compute_dtype="float32", dropout=0.2)
+    data = DataConfig(seq_len=64, chunk_bucket=4, utt_cap=8, t_cap=128)
+    if kind == "transduction":
+        trainer = TransductionTrainer(
+            cfg, data, TransductionTrainConfig(max_batch_len=4000),
+            device="cuda")
+    else:
+        trainer = RecognitionTrainer(
+            cfg, data, RecognitionTrainConfig(max_batch_len=4000),
+            device="cuda")
+    trainer.init_state(0)
+    corpus = DeviceCorpus.build(_step_examples(), "cuda")
+    assert trainer.train_step_ids(corpus, [4, 0, 3, 2], 1e-3) is not None
+    torch.cuda.synchronize()
+    assert len(seen) == 9 and torch.backends.cudnn.allow_tf32
+
+    def gap(x, w, b, stride, padding, out):
+        ref = torch.nn.functional.conv1d(x.double(), w.double(), b.double(),
+                                         stride, padding)
+        return float((out.double() - ref).norm() / ref.norm())
+
+    step_gaps = [gap(*rec) for rec in seen]
+    tf32_gaps = [gap(*rec[:5], torch.nn.functional.conv1d(
+        rec[0], rec[1], rec[2], rec[3], rec[4])) for rec in seen]
+    assert max(step_gaps) < 1e-5, step_gaps
+    assert max(tf32_gaps) > 1e-4, tf32_gaps
+
+
 # ---- the dropout-cell offsets of K1f and K1b, and the mesh -------------
 SHARD = dict(b_offset=3, h_offset=4, h_total=12)
 

@@ -4,11 +4,11 @@ With no profiler recording, a span is one shared null context and no
 profiler range is made. Under ``torch.profiler`` on the CPU, one
 ``train_step_ids`` of each trainer, at tiny widths with dropout on,
 records ``ssp.assemble``, ``ssp.loss`` and ``ssp.backward`` inside
-``ssp.step``, and the dropout masks (``ssp.dropout.mask``) both in the
-forward and in the backward; the losses and the updated weights are the
-same to the bit with and without the profiler. The private torch names
-``span`` rests on are pinned, and a torch without them fails at import
-with a message that names them.
+``ssp.step``, the encoder's ``ssp.conv_stack``, and the dropout masks
+(``ssp.dropout.mask``) both in the forward and in the backward; the
+losses and the updated weights are the same to the bit with and without
+the profiler. The private torch names ``span`` rests on are pinned, and a
+torch without them fails at import with a message that names them.
 """
 
 import re
@@ -30,7 +30,7 @@ from torch_port_util import example_dict, one_torch_thread
 
 KINDS = ("recognition", "transduction")
 SPANS = {"ssp.step", "ssp.assemble", "ssp.loss", "ssp.backward",
-         "ssp.dropout.mask"}
+         "ssp.dropout.mask", "ssp.conv_stack"}
 IDS = [4, 0, 3, 2]
 LR = 1e-3
 
