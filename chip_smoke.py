@@ -1554,6 +1554,7 @@ def swapped(module, name, fn):
 
 
 def reset_launches():
+    from silent_speech_tpu_torch.ops.adamw import adamw_fold, adamw_update
     from silent_speech_tpu_torch.ops.ctc import ctc_nll
     from silent_speech_tpu_torch.ops.dropout import mask_scale, relu_dropout
     from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
@@ -1568,10 +1569,12 @@ def reset_launches():
     ctc_nll.launches = ctc_nll.backward_launches = 0
     filtfilt_chain.launches = 0
     mask_scale.launches = relu_dropout.backward_launches = 0
+    adamw_update.launches = adamw_fold.launches = 0
     full_fp32.steps = 0
 
 
 def read_launches():
+    from silent_speech_tpu_torch.ops.adamw import adamw_fold, adamw_update
     from silent_speech_tpu_torch.ops.ctc import ctc_nll
     from silent_speech_tpu_torch.ops.dropout import mask_scale, relu_dropout
     from silent_speech_tpu_torch.ops.dtw import dtw_align_batch
@@ -1588,7 +1591,9 @@ def read_launches():
                      "ctc_bwd": ctc_nll.backward_launches,
                      "filtfilt_chain": filtfilt_chain.launches,
                      "dropout": mask_scale.launches,
-                     "dropout_relu_bwd": relu_dropout.backward_launches},
+                     "dropout_relu_bwd": relu_dropout.backward_launches,
+                     "adamw_update": adamw_update.launches,
+                     "adamw_fold": adamw_fold.launches},
                     f32={"rel_attention_fwd": rel_attention.f32_launches,
                          "rel_attention_bwd":
                              rel_attention_bwd.f32_launches},
@@ -1623,7 +1628,7 @@ def launch_counts(**counts):
     """A ``read_launches()`` dict with ``counts`` and 0 for the rest."""
     names = ("rel_attention_fwd", "rel_attention_bwd", "dtw_align",
              "dtw_align_dp_only", "ctc", "ctc_bwd", "filtfilt_chain",
-             "dropout", "dropout_relu_bwd")
+             "dropout", "dropout_relu_bwd", "adamw_update", "adamw_fold")
     return Launches({name: counts.get(name, 0) for name in names})
 
 
@@ -1635,6 +1640,13 @@ def dropout_counts(layers: int, steps: int) -> dict:
     (``dropout_relu_bwd``, 1 a layer): 36 a step at 6 layers."""
     return {"dropout": 5 * layers * steps,
             "dropout_relu_bwd": layers * steps}
+
+
+def adamw_counts(updates: int, micro_steps: int = 0) -> dict:
+    """The AdamW kernels' launches (``csrc/adamw.cu``) of ``updates``
+    optimizer updates and, with accumulation, ``micro_steps`` folds: one
+    launch each, every trainer's leaves fitting one launch."""
+    return {"adamw_update": updates, "adamw_fold": micro_steps}
 
 
 def train(card):
@@ -1694,12 +1706,12 @@ def train(card):
         rel_attention_fwd=layers * n_steps,
         rel_attention_bwd=layers * n_steps,
         dtw_align=sum(1 for b in order if b.num_silent),
-        **dropout_counts(layers, n_steps))
+        **dropout_counts(layers, n_steps), **adamw_counts(n_steps))
     log(f"[train] {n_steps} steps, launches {launches} (expected "
         f"{expected})")
     if launches != expected or not all(expected[k] for k in (
             "rel_attention_fwd", "rel_attention_bwd", "dtw_align",
-            "dropout", "dropout_relu_bwd")):
+            "dropout", "dropout_relu_bwd", "adamw_update")):
         raise AssertionError(f"training launches {launches}, expected "
                              f"{expected}, each kernel of the path above 0")
     loss_values = torch.stack(step_losses).cpu().numpy()
@@ -1824,7 +1836,8 @@ def f32_train(card, batch, lr):
     expected = launch_counts(rel_attention_fwd=layers * n,
                              rel_attention_bwd=layers * n,
                              dtw_align=n if batch.num_silent else 0,
-                             **dropout_counts(layers, n))
+                             **dropout_counts(layers, n),
+                             **adamw_counts(n))
     f32_expected = {"rel_attention_fwd": layers * n,
                     "rel_attention_bwd": layers * n}
     log(f"[train.f32] {n} float32 steps: launches {launches}, on the f32 "
@@ -2182,7 +2195,7 @@ def train_run(card, work):
         rel_attention_bwd=layers * len(steps),
         dtw_align=sum(1 for n in silent if n)
         + sum(1 for (batch, *_), _ in evals if batch.num_silent),
-        **dropout_counts(layers, len(steps)))
+        **dropout_counts(layers, len(steps)), **adamw_counts(len(steps)))
     log(f"[fit] launches in the fit() and resume windows {fit_launches} "
         f"(expected {expected}: 6 forward and 6 backward attention and a "
         f"DTW a step, 6 forward attention and a DTW a validation batch)")
@@ -2376,7 +2389,8 @@ def recognition_run(card, work):
     ok = (torch.equal(loss_a, loss_b) and not differ
           and counts == launch_counts(rel_attention_fwd=layers,
                                       rel_attention_bwd=layers, ctc=1,
-                                      ctc_bwd=1, **dropout_counts(layers, 1)))
+                                      ctc_bwd=1, **dropout_counts(layers, 1),
+                                      **adamw_counts(0, 1)))
     log(f"[rec] two micro-steps from one state on one batch: losses "
         f"{loss_a.item():.6f} and {loss_b.item():.6f}, all {len(grads_a)} "
         f"gradients torch.equal: {not differ}"
@@ -2469,7 +2483,8 @@ def recognition_run(card, work):
     expected = launch_counts(
         rel_attention_fwd=layers * (len(steps) + len(wers) * len(dev_set)),
         rel_attention_bwd=layers * len(steps), ctc=len(steps),
-        ctc_bwd=len(steps), **dropout_counts(layers, len(steps)))
+        ctc_bwd=len(steps), **dropout_counts(layers, len(steps)),
+        **adamw_counts(len(steps) // 2, len(steps)))
     losses = torch.stack(steps).cpu().numpy()
     emit = [i % 2 == 1 for i in range(len(steps))]
     log(f"[rec] fit(): {len(calls['ids'])} micro-steps in {FIT_EPOCHS} "
@@ -2801,10 +2816,10 @@ def vocoder_run(card, work):
         f"{moved['disc.']}/{counts['disc.']} discriminator tensors; "
         f"launches {launches}")
     if (not finite or not all(moved.values())
-            or launches != launch_counts()):
+            or launches != launch_counts(**adamw_counts(2 * step))):
         raise AssertionError("the GAN steps failed: a metric not finite, "
                              "a model that did not move, or a kernel "
-                             "launched")
+                             "launched but the two updates a step")
 
     def profiled():
         for _ in range(GAN_PROFILED):
@@ -3042,7 +3057,7 @@ def disk_run(card, work):
                                     + len(devset)),
         rel_attention_bwd=layers * len(steps),
         dtw_align=sum(steps) + sum(evals), filtfilt_chain=1,
-        **dropout_counts(layers, len(steps)))
+        **dropout_counts(layers, len(steps)), **adamw_counts(len(steps)))
     finished = log_lines(os.path.join(run, "log.txt"), "finished epoch")
     built = log_lines(os.path.join(run, "log.txt"), "building the device")
     skipped = log_lines(os.path.join(run, "log.txt"), "ASR WER skipped")
@@ -3192,7 +3207,8 @@ def disk_run(card, work):
         rel_attention_fwd=layers * (len(steps) + len(devset)),
         rel_attention_bwd=layers * len(steps), ctc=len(steps),
         ctc_bwd=len(steps), filtfilt_chain=1,
-        **dropout_counts(layers, len(steps)))
+        **dropout_counts(layers, len(steps)),
+        **adamw_counts(len(steps) // 2, len(steps)))
     finished = log_lines(os.path.join(rec_run, "log.txt"), "finished epoch")
     log(f"[disk] recognition CLI, 1 epoch: {len(steps)} micro-step(s), "
         f"{updates} update(s), {len(devset)} validation utterances in "
@@ -3399,7 +3415,7 @@ def disk_vocoder(work, data, model_pt, layers):
           and any("at 2 total" in x for x in logged)
           and any("at step 2" in x for x in resumed)
           and any("at 3 total" in x for x in resumed)
-          and launches == launch_counts())
+          and launches == launch_counts(**adamw_counts(2 * 3)))
     log(f"[disk] finetune_vocoder --steps 2, then --resume --steps 1, in "
         f"{time.perf_counter() - t0:.2f} s: {logged}; {resumed}; launches "
         f"{launches} {'ok' if ok else 'FAIL'}")
@@ -3874,6 +3890,113 @@ def time_dropout(card, path_launches=None):
             "library_ms": None, "timings": timings}
 
 
+def time_adamw(card, path_launches=None):
+    """Phase 8, the AdamW kernels (``csrc/adamw.cu``) at the transduction
+    model's 120 leaves: after two updates from the same gradients the
+    kernels' weights and moments torch.equal to the per-leaf loop's, with
+    bf16 and with float32 moments; then ms a launch of the update (each
+    moment dtype) and of the accumulation's fold, queued behind a sleeping
+    kernel (the device's time), against the byte bound (p, g, m, v read
+    once, p, m, v written once; the fold: g and acc read, acc written),
+    the loop's update (ms a step, host included), and
+    ``torch.optim.AdamW(fused=True)``'s step (float32 moments) as the
+    library yardstick, which the port never calls. Runs alone too
+    (``path_launches`` None). Returns the kernels JSON entry."""
+    import torch
+    from silent_speech_tpu_torch.config import ModelConfig
+    from silent_speech_tpu_torch.models.encoder import EMGEncoder
+    from silent_speech_tpu_torch.ops import adamw
+    from silent_speech_tpu_torch.train.state import FusedAdamW
+
+    class Loop(FusedAdamW):
+        def _leaves(self):
+            return None
+
+    shapes = [p.shape for p in EMGEncoder(80, 48, ModelConfig()).parameters()]
+    n = sum(int(np.prod(s)) for s in shapes)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    start = [torch.randn(s, device="cuda", generator=g) for s in shapes]
+    grads = [torch.randn(s, device="cuda", generator=g) * 1e-2
+             for s in shapes]
+    lr = 1e-3
+
+    def make(cls, **kw):
+        params = [torch.nn.Parameter(x.clone()) for x in start]
+        for p, x in zip(params, grads):
+            p.grad = x          # read only: shared by every optimizer
+        return params, cls(params, weight_decay=1e-7, **kw)
+
+    timings = []
+    for moment_dtype in (torch.bfloat16, torch.float32):
+        (pk, ok), (pl, ol) = (make(cls, moment_dtype=moment_dtype)
+                              for cls in (FusedAdamW, Loop))
+        for _ in range(2):
+            ok.step(lr)
+            ol.step(lr)
+        same = all(torch.equal(a, b) for a, b in zip(pk + ok.mu + ok.nu,
+                                                     pl + ol.mu + ol.nu))
+        leaves = ok._leaves()
+        hyper = adamw.Hyper(0.9, 0.999, 0.1, 0.001, 10.0, 1000.0, 1e-8,
+                            1e-7, -lr)
+        ms = queued_ms(lambda: adamw.adamw_update(leaves, grads, hyper))
+        plain_ms = cuda_time_ms(lambda: ol.step(lr), iters=5, warmup=1)
+        item = torch.finfo(moment_dtype).bits // 8
+        nbytes = n * (4 * 3 + 2 * 2 * item)
+        cases = [("update", moment_dtype, ms, plain_ms, nbytes)]
+        if moment_dtype == torch.float32:
+            lib = torch.optim.AdamW(pl, lr=lr, weight_decay=1e-7,
+                                    fused=True)
+            library_ms = queued_ms(lib.step)
+            del lib
+        (pf, of), (pfl, ofl) = (make(cls, moment_dtype=moment_dtype,
+                                     grad_accum=2)
+                                for cls in (FusedAdamW, Loop))
+        for _ in range(3):
+            of.step(lr)
+            ofl.step(lr)
+        same = same and all(torch.equal(a, b) for a, b in zip(
+            pf + of.mu + of.nu + of.acc, pfl + ofl.mu + ofl.nu + ofl.acc))
+        if moment_dtype == torch.bfloat16:
+            fold_leaves = of._leaves()
+            cases.append((
+                "fold", None,
+                queued_ms(lambda: adamw.adamw_fold(fold_leaves, grads, 2)),
+                cuda_time_ms(lambda: ofl._fold_plain(grads), iters=5,
+                             warmup=1), n * 12))
+        for name, dtype, ms, plain_ms, nbytes in cases:
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            what = (f"update, {str(dtype)[6:]} moments" if dtype
+                    else "fold (accumulation 2)")
+            log(f"[time] {card} | adamw {what} (csrc/adamw.cu), 120 leaves, "
+                f"{n} float32 parameters: torch.equal to the per-leaf loop "
+                f"(two updates, and accumulation 2 over three micro-steps): "
+                f"{same}; kernel {ms:.4f} ms/launch (queued: the device's "
+                f"time), loop {plain_ms:.4f} ms (host included), bound "
+                f"{bound_ms:.5f} ms (bytes: {nbytes} B), "
+                f"{bound_ms / ms:.2%} of bound")
+            timings.append({"kernel": name, "moments": str(dtype)[6:]
+                            if dtype else None, "leaves": len(shapes),
+                            "params": n, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": "bytes"})
+        if not same:
+            raise AssertionError(f"the AdamW kernels with {moment_dtype} "
+                                 f"moments differ from the per-leaf loop")
+        del pk, ok, pl, ol, pf, of, pfl, ofl
+    log(f"[time] {card} | adamw library yardstick torch.optim.AdamW("
+        f"fused=True), float32 moments: {library_ms:.4f} ms a step "
+        f"(queued)")
+    by_path = {path: (counts["adamw_update"], counts["adamw_fold"])
+               for path, counts in (path_launches or {}).items()}
+    return {"name": "adamw", "route": "cuda",
+            "source": "silent_speech_tpu_torch/csrc/adamw.cu",
+            "replaces": "silent_speech_tpu/train/state.py fused_adamw",
+            "pallas": False,
+            "launches": sum(sum(v) for v in by_path.values()),
+            "launches_by_path": {k: sum(v) for k, v in by_path.items()},
+            "launches_fold": sum(v[1] for v in by_path.values()),
+            "library_ms": library_ms, "timings": timings}
+
+
 def filtfilt_bounds(lengths, t_pad, c, coeffs):
     """The filter chain's byte bound (each valid input sample read once,
     the padded output written once) and operation bound, the chain's
@@ -4078,7 +4201,7 @@ def mesh_run(card):
         expected = launch_counts(
             rel_attention_fwd=layers, rel_attention_bwd=layers,
             dtw_align=1 if batches[0].num_silent else 0,
-            **dropout_counts(layers, 1))
+            **dropout_counts(layers, 1), **adamw_counts(1))
         if step_launches != expected:
             raise AssertionError(f"mesh step launches {step_launches}, "
                                  f"expected {expected}")
@@ -4152,7 +4275,8 @@ def mesh_run(card):
         f"{time.perf_counter() - t0:.1f} s, launches {dry_launches}")
     if dist.is_initialized():
         raise AssertionError("the mesh phase left a process group")
-    for k in ("rel_attention_fwd", "rel_attention_bwd", "dtw_align", "ctc"):
+    for k in ("rel_attention_fwd", "rel_attention_bwd", "dtw_align", "ctc",
+              "adamw_update", "adamw_fold"):
         if not dry_launches[k]:
             raise AssertionError(f"the dry run launched no {k}")
     mesh_launches = launch_counts()
@@ -4349,6 +4473,7 @@ def main() -> int:
         kernels.append(time_filtfilt(card, path_launches, corpus_inputs,
                                      errs, build_s, stream_latency, group))
         kernels.append(time_dropout(card, path_launches))
+        kernels.append(time_adamw(card, path_launches))
     del group
     lap("timings")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the card was "

@@ -26,6 +26,12 @@ On a mesh, ``grad_sync`` turns the rank's gradients into the mesh's
 (``train/transduction.py``: summed over the data axis) in place, just
 before an update reads them: once a step, or once an accumulation group,
 on the mean of its micro-steps.
+
+Leaves on the card go through ``ops/adamw.py`` (``csrc/adamw.cu``): one
+launch an update over every leaf and, with accumulation, one fold a
+micro-step, whose last also reads and zeroes the mean; bit for bit the
+per-leaf loop's numbers. CPU tensors take the loop (``_fold_plain``,
+``_update_plain``), the kernels' plain version.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
+
+from ..ops import adamw
 
 
 class FusedAdamW:
@@ -60,10 +68,23 @@ class FusedAdamW:
         self.mini_step = 0   # micro-steps folded into ``acc`` so far
         self.acc = [torch.zeros_like(p, dtype=torch.float32)
                     for p in self.params] if grad_accum > 1 else []
+        self._on_card: Optional[adamw.Leaves] = None
 
-    def _grads(self):
-        return [(p.grad if p.grad is not None
-                 else torch.zeros_like(p)).float() for p in self.params]
+    def _leaves(self) -> Optional[adamw.Leaves]:
+        """The leaves as the kernels take them when they lie on the card
+        (built at the first step, again when a leaf's storage moves); None
+        on the CPU, where the per-leaf loop runs."""
+        if not self.params or self.params[0].device.type != "cuda":
+            return None
+        if self._on_card is None or not self._on_card.current(
+                self.params, self.mu, self.nu, self.acc):
+            self._on_card = adamw.Leaves(self.params, self.mu, self.nu,
+                                       self.acc)
+        return self._on_card
+
+    def _dense(self, grads):
+        return [torch.zeros_like(p) if g is None else g.float()
+                for p, g in zip(self.params, grads)]
 
     @torch.no_grad()
     def step(self, lr: float) -> bool:
@@ -71,25 +92,52 @@ class FusedAdamW:
         ``.grad`` (a parameter without one takes a zero gradient). Returns
         whether the weights were updated: always without accumulation,
         on every ``grad_accum``-th micro-step with it."""
+        table = self._leaves()
+        grads = [p.grad for p in self.params]
         if self.grad_accum > 1:
-            # optax's Welford mean: acc + (g − acc)/(n + 1), in place
-            delta = torch._foreach_sub(self._grads(), self.acc)
-            torch._foreach_div_(delta, self.mini_step + 1)
-            torch._foreach_add_(self.acc, delta)
+            if table is None:
+                self._fold_plain(self._dense(grads))
+            else:
+                adamw.adamw_fold(table, grads, self.mini_step + 1)
             self.mini_step = (self.mini_step + 1) % self.grad_accum
             if self.mini_step:
                 return False
             grads = self.acc
-        else:
-            grads = self._grads()
+        elif table is None or self.grad_sync is not None:
+            # the loop, and a collective over the same leaves on every
+            # rank, take a tensor a leaf
+            grads = self._dense(grads)
         if self.grad_sync is not None:
             self.grad_sync(grads)
         self.count += 1
         c = np.float32(self.count)
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** c)
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** c)
+        bc1 = np.float32(1) - np.float32(self.b1) ** c
+        bc2 = np.float32(1) - np.float32(self.b2) ** c
         one_minus_b1 = float(np.float32(1) - np.float32(self.b1))
         one_minus_b2 = float(np.float32(1) - np.float32(self.b2))
+        if table is None:
+            self._update_plain(grads, lr, float(bc1), float(bc2),
+                               one_minus_b1, one_minus_b2)
+            return True
+        f32 = np.float32
+        adamw.adamw_update(
+            table, None if self.acc else grads,
+            adamw.Hyper(float(f32(self.b1)), float(f32(self.b2)),
+                        one_minus_b1, one_minus_b2,
+                        float(f32(1) / bc1), float(f32(1) / bc2),
+                        float(f32(self.eps)), float(f32(self.weight_decay)),
+                        float(f32(-lr))))
+        return True
+
+    def _fold_plain(self, grads: List[torch.Tensor]) -> None:
+        # optax's Welford mean: acc + (g − acc)/(n + 1), in place
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, self.mini_step + 1)
+        torch._foreach_add_(self.acc, delta)
+
+    def _update_plain(self, grads: List[torch.Tensor], lr: float,
+                      bc1: float, bc2: float, one_minus_b1: float,
+                      one_minus_b2: float) -> None:
         for p, g32, m, v in zip(self.params, grads, self.mu, self.nu):
             m32 = self.b1 * m.float() + one_minus_b1 * g32
             v32 = self.b2 * v.float() + one_minus_b2 * (g32 * g32)
@@ -100,4 +148,3 @@ class FusedAdamW:
             v.copy_(v32)
         if self.acc:
             torch._foreach_zero_(self.acc)
-        return True

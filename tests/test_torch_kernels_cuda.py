@@ -12,6 +12,7 @@ import torch
 
 from silent_speech_tpu_torch.config import ModelConfig
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
+from silent_speech_tpu_torch.ops import adamw
 from silent_speech_tpu_torch.ops import rel_attention as attention_module
 from silent_speech_tpu_torch.ops.ctc import (MAX_LABELS, ctc_grad_plain,
                                              ctc_nll, ctc_nll_plain)
@@ -23,6 +24,7 @@ from silent_speech_tpu_torch.ops.dtw import (MAX_ROWS, dtw_align_batch,
 from silent_speech_tpu_torch.ops.rel_attention import (
     _staged_bwd, attention_drop_threshold, rel_attention, rel_attention_bwd,
     rel_attention_bwd_staged_plain, rel_attention_plain)
+from silent_speech_tpu_torch.train.state import FusedAdamW
 
 DROP = attention_drop_threshold(0.2)
 
@@ -1498,3 +1500,159 @@ def test_a_transduction_micro_step_launches_36_dropout_kernels(card):
     torch.cuda.synchronize()
     masks, relu_bwd = (a - b for a, b in zip(_dropout_launches(), before))
     assert (masks, relu_bwd) == (30, 6)
+
+
+# ---- AdamW in one launch (ops/adamw.py, csrc/adamw.cu) ---------------------
+class _LoopAdamW(FusedAdamW):
+    """The per-leaf loop on any device: the kernels' oracle."""
+
+    def _leaves(self):
+        return None
+
+
+def _adamw_pair(shapes, moment_dtype, weight_decay, grad_accum, views=False):
+    """The same leaves twice on the card, under the kernels and under the
+    loop; ``views``: each leaf a view 4 bytes past a 16-byte boundary."""
+    g = torch.Generator().manual_seed(11)
+    start = [torch.randn(s, generator=g) for s in shapes]
+    pairs = []
+    for cls in (FusedAdamW, _LoopAdamW):
+        leaves = [(_unaligned(x) if views else x.to("cuda")) for x in start]
+        params = [torch.nn.Parameter(x) for x in leaves]
+        pairs.append((params, cls(params, weight_decay=weight_decay,
+                                  moment_dtype=moment_dtype,
+                                  grad_accum=grad_accum)))
+    return pairs
+
+
+def _unaligned(x):
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16
+    return out
+
+
+def _adamw_run(pairs, micro_steps, missing=(), views=False):
+    """``micro_steps`` micro-steps at a new rate each, gradients at three
+    scales; leaf k of ``missing`` has no ``.grad``, leaf 1 none at
+    micro-step 1. Returns the counters' launches."""
+    g = torch.Generator().manual_seed(12)
+    before = adamw.adamw_update.launches, adamw.adamw_fold.launches
+    for step in range(micro_steps):
+        grads = [torch.randn(p.shape, generator=g) * 10.0 ** -(step % 3)
+                 for p in pairs[0][0]]
+        lr = 1e-3 * (1 + 0.37 * step)
+        emitted = []
+        for params, opt in pairs:
+            for k, (p, x) in enumerate(zip(params, grads)):
+                gone = k in missing or (k == 1 and step == 1)
+                p.grad = None if gone else (_unaligned(x) if views
+                                            else x.to("cuda"))
+            emitted.append(opt.step(lr))
+        assert emitted[0] == emitted[1]
+    torch.cuda.synchronize()
+    return (adamw.adamw_update.launches - before[0],
+            adamw.adamw_fold.launches - before[1])
+
+
+def _assert_adamw_equal(pairs):
+    (p1, o1), (p2, o2) = pairs
+    assert o1._on_card is not None and o2._on_card is None
+    assert (o1.count, o1.mini_step) == (o2.count, o2.mini_step)
+    for name, xs, ys in (("p", p1, p2), ("m", o1.mu, o2.mu),
+                         ("v", o1.nu, o2.nu), ("acc", o1.acc, o2.acc)):
+        for k, (x, y) in enumerate(zip(xs, ys)):
+            assert torch.equal(x, y), f"{name} of leaf {k}"
+
+
+RAGGED = [(1,), (0,), (3,), (48,), (80,), (1027,), (768, 3072)]
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2, 3])
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-7])
+@pytest.mark.parametrize("moment_dtype", [torch.bfloat16, torch.float32])
+def test_adamw_kernels_match_the_loop_bit_for_bit(card, moment_dtype,
+                                                  weight_decay, grad_accum):
+    # three groups and a part, leaf 2 never with a gradient, leaf 1 empty
+    pairs = _adamw_pair(RAGGED, moment_dtype, weight_decay, grad_accum)
+    micro_steps = 3 * grad_accum + 1
+    updates, folds = _adamw_run(pairs, micro_steps, missing=(2,))
+    assert (updates, folds) == (micro_steps // grad_accum,
+                                micro_steps if grad_accum > 1 else 0)
+    _assert_adamw_equal(pairs)
+    assert pairs[0][1].count == micro_steps // grad_accum
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+@pytest.mark.parametrize("moment_dtype", [torch.bfloat16, torch.float32])
+def test_adamw_kernels_on_the_transduction_model_s_leaves(card, moment_dtype,
+                                                          grad_accum):
+    shapes = [tuple(p.shape) for p in EMGEncoder(80, 48, ModelConfig())
+              .parameters()]
+    assert len(shapes) == 120
+    pairs = _adamw_pair(shapes, moment_dtype, 1e-7, grad_accum)
+    updates, folds = _adamw_run(pairs, 2 * grad_accum)
+    assert (updates, folds) == (2, 4 if grad_accum > 1 else 0)
+    _assert_adamw_equal(pairs)
+
+
+@pytest.mark.parametrize("moment_dtype", [torch.bfloat16, torch.float32])
+def test_adamw_kernels_on_unaligned_leaves_and_gradients(card, moment_dtype):
+    pairs = _adamw_pair([(1,), (3,), (48,), (80,), (1027,), (7, 33)],
+                        moment_dtype, 1e-7, 2, views=True)
+    assert all(p.data_ptr() % 16 for p in pairs[0][0])
+    _adamw_run(pairs, 5, views=True)
+    _assert_adamw_equal(pairs)
+
+
+def test_adamw_past_one_launch_s_leaves(card):
+    n = adamw.leaves_per_launch() + 20
+    pairs = _adamw_pair([(1 + k % 37,) for k in range(n)], torch.bfloat16,
+                        1e-7, 2)
+    updates, folds = _adamw_run(pairs, 4, missing=(0, n - 1))
+    assert (updates, folds) == (2 * 2, 4 * 2)    # two launches each
+    _assert_adamw_equal(pairs)
+
+
+def test_adamw_does_not_sync_the_stream(card):
+    pairs = _adamw_pair(RAGGED, torch.bfloat16, 1e-7, 2)
+    params, opt = pairs[0]
+    for p in params:
+        p.grad = torch.ones_like(p)
+    opt.step(1e-3)                  # builds the table and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert opt.step(1e-3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert not any(a.any() for a in opt.acc)
+
+
+def test_adamw_rejects_what_the_kernels_do_not_take(card):
+    def step(p, grad=None):
+        p.grad = torch.ones_like(p) if grad is None else grad
+        FusedAdamW([p]).step(1e-3)
+
+    with pytest.raises(ValueError, match="float32 parameters"):
+        step(torch.nn.Parameter(torch.zeros(8, device="cuda",
+                                            dtype=torch.bfloat16)))
+    with pytest.raises(ValueError, match="contiguous leaves"):
+        step(torch.nn.Parameter(torch.zeros(8, 4, device="cuda").t()))
+    with pytest.raises(ValueError, match="contiguous float32 gradients"):
+        step(torch.nn.Parameter(torch.zeros(8, 4, device="cuda")),
+             torch.zeros(4, 8, device="cuda").t())
+
+
+def test_recognition_micro_steps_fold_each_and_update_every_second(card):
+    batch = _tiny_recognizer("cpu")._pack(_recognition_examples())
+    trainer = _tiny_recognizer("cuda")
+    before = adamw.adamw_update.launches, adamw.adamw_fold.launches
+    for _ in range(3):
+        trainer.train_step(batch, 1e-3)
+    torch.cuda.synchronize()
+    assert (adamw.adamw_update.launches - before[0],
+            adamw.adamw_fold.launches - before[1]) == (1, 3)
+    assert (trainer.optimizer.count, trainer.optimizer.mini_step) == (1, 1)
