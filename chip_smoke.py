@@ -1904,7 +1904,7 @@ def transduction_determinism(card, trainer, order):
     give torch.equal gradients; then the step under cuDNN's deterministic
     algorithms against the default ones, timed in turns in this call."""
     import torch
-    from silent_speech_tpu_torch.train import transduction
+    from silent_speech_tpu_torch.train import encoder_trainer
 
     lr = trainer.train_cfg.learning_rate
     snap = _snapshot(trainer)
@@ -1929,7 +1929,7 @@ def transduction_determinism(card, trainer, order):
     del snap
 
     def default_algorithms():
-        return swapped(transduction, "deterministic_cudnn",
+        return swapped(encoder_trainer, "deterministic_cudnn",
                        contextlib.nullcontext)
 
     with default_algorithms():   # the default algorithms' first call
@@ -2028,7 +2028,6 @@ def train_run(card, work):
     from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
                                                 TransductionTrainConfig)
     from silent_speech_tpu_torch.data.dataset import ExampleList
-    from silent_speech_tpu_torch.data.device_cache import assemble_batch
     from silent_speech_tpu_torch.data.normalizers import FeatureNormalizer
     from silent_speech_tpu_torch.data.packing import upload
     from silent_speech_tpu_torch.models.encoder import EMGEncoder
@@ -2053,16 +2052,8 @@ def train_run(card, work):
     log(f"[fit] device corpus of {corpus.num_examples} utterances "
         f"({sum(len(s) for s in sets)} in 4 sets), {nbytes / 2**20:.1f} "
         f"MiB on the card, built in {time.perf_counter() - t0:.2f} s")
-    caps = trainer._cache_caps()
     ids = corpus.order_silent_first(id_sets[0])
-    u_cap = trainer.data_cfg.utt_cap
-    utt_ids = torch.zeros(u_cap, dtype=torch.int64)
-    utt_ids[: len(ids)] = torch.tensor(ids)
-    gathered = assemble_batch(
-        corpus.arrays, utt_ids.cuda(),
-        torch.arange(u_cap, device="cuda") < len(ids),
-        n_chunks=caps["n_chunks"], seq_len=caps["seq_len"],
-        t_cap=caps["t_cap"])
+    gathered = trainer.assemble(corpus, ids)
     packed = upload(trainer._pack(sets[0]), "cuda")
     differ = [f for f in packed._fields if not (
         getattr(gathered, f).dtype == getattr(packed, f).dtype

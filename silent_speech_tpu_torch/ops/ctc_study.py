@@ -1,8 +1,7 @@
-"""The CTC kernel against another version of ``csrc/ctc.cu`` on the card,
-and that version's ablations.
+"""The CTC kernel against another version of ``csrc/ctc.cu`` on the card.
 
     python -m silent_speech_tpu_torch.ops.ctc_study --against old_ctc.cu \\
-        [--ablate] [--sass DIR]
+        [--sass DIR]
 
 ``--against`` names a CTC source with the same C entries (``ctc_forward``,
 ``ctc_backward``), for example an earlier commit's, written out with ``git
@@ -16,14 +15,7 @@ the card tests' tolerances; then each side's forward and backward (the C
 entries alone, CUDA events) are timed in turns, other, port, port,
 other.
 
-``--ablate`` times variants of the ``--against`` source, each a text edit
-that must apply to it (they fit the first design of the kernel): (a) the
-per-frame global loads replaced by register constants, (b) (a) without the
-per-frame ``__syncthreads``, (c) (b) without the per-frame global stores,
-(d) the forward's three ``lae`` computed unconditionally and then
-selected, (e) (d) with (c)'s cuts. Their outputs are wrong by design but
-(d); the point is the ns a frame. ``--sass DIR`` writes ``cuobjdump
--sass`` of the ``--against`` source and of variant (d).
+``--sass DIR`` writes ``cuobjdump -sass`` of the ``--against`` source.
 
 Needs a CUDA card and nvcc. Prints one line per result and writes them as
 JSON to ``--out``.
@@ -49,84 +41,11 @@ BLANK = 37
 # the card tests' tolerances (tests/test_torch_kernels_cuda.py)
 NLL_RTOL, GRAD_RTOL = 1e-6, 1e-5
 
-# (a)-(c): text edits of the first design's csrc/ctc.cu, by macro
-_GUARDS = [
-    ("""    if (live && t + 1 < r.len) {
-      le_nx = x[(size_t)(t + 1) * K + r.lab];
-      lb_nx = x[(size_t)(t + 1) * K + blank];
-    }
-""", "ABL_NOLOAD"),
-    ("""    if (live && t >= 1) {
-      const size_t o = (size_t)(t - 1) * stride;
-      phi_nx = hp[o + n];
-      if (n < r.L) em_nx = he[o + n];
-      if (n >= 1) emp_nx = he[o + n - 1];
-      le_nx = x[(size_t)(t - 1) * K + r.lab];
-      lb_nx = x[(size_t)(t - 1) * K + blank];
-    }
-""", "ABL_NOLOAD"),
-    ("""      hp[(size_t)(t + 1) * stride] = phi;
-      he[(size_t)(t + 1) * stride] = emit;
-""", "ABL_NOSTORE"),
-    ("""        oe[(size_t)t * stride] = g1 + g2;
-""", "ABL_NOSTORE"),
-    ("""      ob[(size_t)t * stride] = g_b + g_c;
-""", "ABL_NOSTORE"),
-    ("""    cur ^= 1;
-    __syncthreads();
-  }
-  if (n == r.L) {""", None),  # the forward's barrier, guarded below
-    ("""    __syncthreads();
-    if (live && n < r.L) g_emit""", None),  # the backward's
-]
-# (d): the forward's updates as selects
-_BRANCHES = """      const float emp = n >= 1 ? em[cur * stride + n - 1] : 0.f;
-      const float a = n == 0 ? phi : lae(phi, __fadd_rn(emp, r.pen_rep));
-      if (n < r.L) emit = lae(__fadd_rn(a, le), __fadd_rn(emit, le));
-      const float b = __fadd_rn(a, lb);
-      phi = n == 0 ? b
-                   : lae(b, __fadd_rn(__fadd_rn(emp, lb), r.pen_norep));
-"""
-_SELECTS = """      const float emp = em[cur * stride + (n >= 1 ? n - 1 : 0)];
-      const float a1 = lae(phi, __fadd_rn(emp, r.pen_rep));
-      const float a = n == 0 ? phi : a1;
-      const float e1 = lae(__fadd_rn(a, le), __fadd_rn(emit, le));
-      const float b = __fadd_rn(a, lb);
-      const float p1 = lae(b, __fadd_rn(__fadd_rn(emp, lb), r.pen_norep));
-      emit = n < r.L ? e1 : emit;
-      phi = n == 0 ? b : p1;
-"""
-VARIANTS = {"a": ["ABL_NOLOAD"], "b": ["ABL_NOLOAD", "ABL_NOSYNC"],
-            "c": ["ABL_NOLOAD", "ABL_NOSYNC", "ABL_NOSTORE"],
-            "d": ["ABL_SELECT"],
-            "e": ["ABL_SELECT", "ABL_NOLOAD", "ABL_NOSYNC", "ABL_NOSTORE"]}
-
-
-def ablation_source(text: str) -> str:
-    """The first design's source with each ablation behind its macro."""
-    for old, macro in _GUARDS:
-        if text.count(old) != 1:
-            raise ValueError(f"--ablate: the source does not have the first "
-                             f"design's code:\n{old}")
-        if macro is None:  # a barrier: only the __syncthreads line
-            new = old.replace("__syncthreads();",
-                              "\n#ifndef ABL_NOSYNC\n__syncthreads();\n"
-                              "#endif\n", 1)
-        else:
-            new = f"#ifndef {macro}\n{old}#endif\n"
-        text = text.replace(old, new)
-    if text.count(_BRANCHES) != 1:
-        raise ValueError("--ablate: the forward's update is not the first "
-                         "design's")
-    return text.replace(_BRANCHES, f"#ifdef ABL_SELECT\n{_SELECTS}#else\n"
-                        f"{_BRANCHES}#endif\n")
-
-
-def _nvcc(src: Path, out: Path, defines=(), cubin=False):
+def _nvcc(src: Path, out: Path, cubin=False):
     flags = [f for f in build.NVCC_FLAGS
              if not cubin or f not in ("-shared", "-Xcompiler", "-fPIC")]
-    cmd = [build._nvcc(), *flags, *(f"-D{d}" for d in defines),
-           *(["-cubin"] if cubin else []), "-o", str(out), str(src)]
+    cmd = [build._nvcc(), *flags, *(["-cubin"] if cubin else []), "-o",
+           str(out), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
@@ -144,8 +63,8 @@ def _load(path: Path):
 def _entries(lib, lp, utt_len, labels, text_len, g_nll, states=None):
     """The library's forward and backward on these inputs, as calls that
     launch them on the current stream, and their outputs. With
-    ``states``, the backward reads those per-frame states (an ablated
-    forward does not write its own) and the forward writes its own."""
+    ``states``, the backward reads those per-frame states and the forward
+    writes its own."""
     u, t, k = lp.shape
     s = labels.shape[1]
     stream = torch.cuda.current_stream().cuda_stream
@@ -253,7 +172,6 @@ def main(argv=None) -> int:
     ap.add_argument("--against", required=True, type=Path)
     ap.add_argument("--inputs", type=Path,
                     default=ROOT / "build" / "ctc_micro_step_inputs.pt")
-    ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--sass", type=Path)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", type=Path, default=OUT_DIR / "study.json")
@@ -291,25 +209,13 @@ def main(argv=None) -> int:
     g = torch.ones(lp.shape[0], device="cuda")
     frames = int(utt_len.max())
     libs = {"other": other, "port": _library()}
-    if args.ablate:
-        src = OUT_DIR / "ablate.cu"
-        src.write_text(ablation_source(args.against.read_text()))
-        for name, defines in VARIANTS.items():
-            libs[name] = _load(_nvcc(src, OUT_DIR / f"lib_{name}.so",
-                                     defines))
     if args.sass:
         args.sass.mkdir(parents=True, exist_ok=True)
         tool = Path(build._nvcc()).parent / "cuobjdump"
-        for name, src, defines in (("other", args.against, ()),
-                                   ("d", OUT_DIR / "ablate.cu",
-                                    VARIANTS["d"])):
-            if name == "d" and not args.ablate:
-                continue
-            cubin = _nvcc(src, OUT_DIR / f"{name}.cubin", defines,
-                          cubin=True)
-            (args.sass / f"sass_{name}.txt").write_text(subprocess.run(
-                [str(tool), "-sass", str(cubin)], capture_output=True,
-                text=True, check=True).stdout)
+        cubin = _nvcc(args.against, OUT_DIR / "other.cubin", cubin=True)
+        (args.sass / "sass_other.txt").write_text(subprocess.run(
+            [str(tool), "-sass", str(cubin)], capture_output=True,
+            text=True, check=True).stdout)
     # every backward reads the states of the other version's forward
     first, _, _, _, states = _entries(other, lp, ul, lab, tl, g)
     first()

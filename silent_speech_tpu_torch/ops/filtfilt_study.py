@@ -1,8 +1,8 @@
 """The filter-chain kernel against another version of ``csrc/filtfilt.cu``
-on the card, and that version's ablations.
+on the card.
 
     python -m silent_speech_tpu_torch.ops.filtfilt_study \\
-        --against old_filtfilt.cu [--ablate] [--sass DIR]
+        --against old_filtfilt.cu [--sass DIR]
 
 ``--against`` names a filter-chain source with the same C entry
 (``filtfilt_chain``), for example an earlier commit's, written out with
@@ -22,19 +22,10 @@ At each shape the port's kernel must give the other's output and the
 plain version's (``torch.equal``; at S-corpus on the shortest and the
 longest utterance, sliced out, since a column never reads another) and
 the same output twice; then each library's C entry is timed alone (CUDA
-events, the scratch allocated once, with guard rows) in turns, other,
-port, port, other, and reported as ms a launch and ns a step of the
-longest column's chain (16 passes of L + 2p steps for the cleaning chain).
+events, the scratch allocated once) in turns, other, port, port, other,
+and reported as ms a launch and ns a step of the longest column's chain
+(16 passes of L + 2p steps for the cleaning chain).
 
-``--ablate`` adds variants of the ``--against`` source, each a text edit
-that must apply to it (they fit the first design of the kernel, one
-thread a column over a time-major scratch): (a) each pass steps a pointer
-by the row stride, without the clamp or the 64-bit multiply of its row
-index (the scratch has guard rows); (b) (a) with the blocks that end
-inside the pass peeled off, so the loop over whole blocks has no branch a
-step; (c) (b) with 64 steps a block in place of 16; (d) (b) with the
-stores of the results cut; (e) the copy-in and copy-out loops cut. Their
-outputs are wrong by design but (a)-(c)'s; the point is the ns a step.
 ``--sass DIR`` writes ``cuobjdump -sass`` of both sources.
 
 Needs a CUDA card and nvcc. Prints one line per result and writes them as
@@ -63,114 +54,13 @@ INPUTS = ROOT / "build" / "filtfilt_corpus_inputs.pt"
 # next utterance at 1000 Hz) in one 256 MiB group
 CORPUS_B, CORPUS_T, CORPUS_C = 512, 16384, 8
 CORPUS_MIN_LEN = 6000
-# rows of scratch before and after the kernel's own, for the ablations'
-# reads past a pass's ends (two blocks of the largest, 64)
-GUARD_ROWS = 136
-
-_UNROLL = "constexpr int UNROLL = 16;\n"
-_PASS = """  auto row = [&](int j) {
-    int r = first + dir * j;
-    r = r < 0 ? 0 : (r >= rows ? rows - 1 : r);   // prefetch past the ends
-    return s + (long)r * cols + col;
-  };
-  float z[ND];
-  const float e0 = *row(0);
-#pragma unroll
-  for (int k = 0; k < ND; ++k) z[k] = __fmul_rn(zi[k], e0);
-  float cur[UNROLL], nxt[UNROLL];
-#pragma unroll
-  for (int u = 0; u < UNROLL; ++u) cur[u] = *row(u);
-  for (int jb = 0; jb < total; jb += UNROLL) {
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) nxt[u] = *row(jb + UNROLL + u);
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (jb + u < total) *row(jb + u) = df2t<ND>(cur[u], z, b, a);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) cur[u] = nxt[u];
-  }
-"""
-_PASS_ABLATED = """  const long step = (long)dir * cols;
-  float* p0 = s + (long)first * cols + col;
-  float z[ND];
-  const float e0 = *p0;
-#pragma unroll
-  for (int k = 0; k < ND; ++k) z[k] = __fmul_rn(zi[k], e0);
-  float cur[UNROLL], nxt[UNROLL];
-  float* blk = p0;
-  {
-    float* r = p0;
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u, r += step) cur[u] = *r;
-  }
-  float sink = 0.0f;
-  int jb = 0;
-#ifdef ABL_PEEL
-  for (; jb + UNROLL <= total; jb += UNROLL, blk += UNROLL * step) {
-    float* r = blk + UNROLL * step;
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u, r += step) nxt[u] = *r;
-    r = blk;
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u, r += step) {
-      const float y = df2t<ND>(cur[u], z, b, a);
-#ifdef ABL_NOSTORE
-      sink = __fadd_rn(sink, y);
-#else
-      *r = y;
-#endif
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) cur[u] = nxt[u];
-  }
-#endif
-  for (; jb < total; jb += UNROLL, blk += UNROLL * step) {
-    float* r = blk + UNROLL * step;
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u, r += step) nxt[u] = *r;
-    r = blk;
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u, r += step) {
-      if (jb + u < total) *r = df2t<ND>(cur[u], z, b, a);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) cur[u] = nxt[u];
-  }
-  if (sink == 1.5e38f) *p0 = sink;  // keeps (d)'s chain alive
-"""
-_COPY_IN = ("  for (int t = 0; t < L; ++t) sig[(long)t * cols] = "
-            "xin[(long)t * C];\n")
-_COPY_OUT = """  for (int t = 0; t < T_pad; ++t)
-    xout[(long)t * C] = t < L ? sig[(long)t * cols] : 0.0f;
-"""
-VARIANTS = {"a": ["ABL_PTR"], "b": ["ABL_PTR", "ABL_PEEL"],
-            "c": ["ABL_PTR", "ABL_PEEL", "ABL_UNROLL64"],
-            "d": ["ABL_PTR", "ABL_PEEL", "ABL_NOSTORE"],
-            "e": ["ABL_NOCOPY"]}
 
 
-def ablation_source(text: str) -> str:
-    """The first design's source with each ablation behind its macro."""
-    edits = [(_UNROLL, "#ifdef ABL_UNROLL64\nconstexpr int UNROLL = 64;\n"
-                       f"#else\n{_UNROLL}#endif\n"),
-             (_PASS, f"#ifdef ABL_PTR\n{_PASS_ABLATED}#else\n{_PASS}"
-                     "#endif\n"),
-             (_COPY_IN, f"#ifndef ABL_NOCOPY\n{_COPY_IN}#endif\n"),
-             (_COPY_OUT, f"#ifndef ABL_NOCOPY\n{_COPY_OUT}#endif\n")]
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise ValueError(f"--ablate: the source does not have the first "
-                             f"design's code:\n{old}")
-        text = text.replace(old, new)
-    return text
-
-
-def _nvcc(src: Path, out: Path, defines=(), cubin=False):
+def _nvcc(src: Path, out: Path, cubin=False):
     flags = [f for f in build.NVCC_FLAGS
              if not cubin or f not in ("-shared", "-Xcompiler", "-fPIC")]
-    cmd = [build._nvcc(), *flags, *(f"-D{d}" for d in defines),
-           *(["-cubin"] if cubin else []), "-o", str(out), str(src)]
+    cmd = [build._nvcc(), *flags, *(["-cubin"] if cubin else []), "-o",
+           str(out), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
@@ -242,7 +132,7 @@ def sliced_check(x, lengths, coeffs, out, ref=None) -> dict:
 
 class Entry:
     """A library's C entry on fixed inputs, launched on the current
-    stream, with its own output and a scratch with guard rows."""
+    stream, with its own output and scratch."""
 
     def __init__(self, lib, x, lengths, coeffs):
         self.lib, self.x = lib, x
@@ -252,15 +142,13 @@ class Entry:
         rows = t + 2 * chain_padlen(coeffs)
         self.lengths = lengths.to(x.device, torch.int32)
         self.out = torch.empty_like(x)
-        self.scratch = torch.zeros((rows + 2 * GUARD_ROWS) * b * c,
-                                   device=x.device)
-        self.base = self.scratch[GUARD_ROWS * b * c:]
+        self.scratch = torch.zeros(rows * b * c, device=x.device)
 
     def __call__(self):
         b, t, c = self.x.shape
         err = self.lib.filtfilt_chain(
             self.x.data_ptr(), self.lengths.data_ptr(), self.out.data_ptr(),
-            self.base.data_ptr(),
+            self.scratch.data_ptr(),
             self.nd.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
             self.coef.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             self.n, b, t, c, torch.cuda.current_stream().cuda_stream)
@@ -319,7 +207,6 @@ def main(argv=None) -> int:
     ap.add_argument("--inputs", type=Path, default=INPUTS)
     ap.add_argument("--shapes", default="phase7,corpus")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--sass", type=Path)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--out", type=Path, default=OUT_DIR / "study.json")
@@ -334,12 +221,6 @@ def main(argv=None) -> int:
     build.build(["filtfilt"])
     libs = {"other": _load(_nvcc(args.against, OUT_DIR / "libother.so")),
             "port": _library()}
-    if args.ablate:
-        src = OUT_DIR / "ablate.cu"
-        src.write_text(ablation_source(args.against.read_text()))
-        for name, defines in VARIANTS.items():
-            libs[name] = _load(_nvcc(src, OUT_DIR / f"lib_{name}.so",
-                                     defines))
     if args.sass:
         args.sass.mkdir(parents=True, exist_ok=True)
         tool = Path(build._nvcc()).parent / "cuobjdump"

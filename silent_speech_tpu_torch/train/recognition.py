@@ -25,11 +25,10 @@ attention mask: the attention kernel takes one length a launch. Conv and
 eval-mode BatchNorm act per row, so each row equals the JAX batched row,
 the padding's effect on the last frames included.
 
-On a data × model mesh (``mesh=``) a micro-step runs as the transduction
-trainer's does: the forward on the data rank's chunk rows, the logits
-gathered over ``data``, the whole CTC loss on every rank; the gradient is
-summed over ``data`` once an update, on the accumulated mean. The chunk
-and utterance buckets are rounded up to the data axis.
+The batches, the micro-step, an epoch's steps and the mesh are the shared
+core's (``train/encoder_trainer.py``); batches here carry no audio. On a
+data × model mesh (``mesh=``) the gradient is summed over ``data`` once an
+update, on the accumulated mean.
 
 The JAX trainer's wave and scan steps amortize the dispatch to a remote
 TPU; the port's steps queue on the card without them, as the transduction
@@ -44,200 +43,70 @@ import logging
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..config import DataConfig, ModelConfig, RecognitionTrainConfig
-from ..data.device_cache import (DeviceCorpus, assemble_batch,
-                                 build_training_corpus)
-from ..data.packing import DeviceBatch, PackedBatch, pack_batch, upload
+from ..data.packing import DeviceBatch
 from ..data.sampler import SizeAwareSampler
 from ..eval.decode import (beam_ctc_decode, greedy_ctc_decode,
                            native_beam_usable)
 from ..models.encoder import EMGEncoder
 from ..text import TextTransform, wer
-from ..parallel.collectives import all_gather
-from ..parallel.mesh import data_sync
-from ..utils.device import (deterministic_cudnn, resolve_device,
-                            step_precision)
-from ..utils.profiling import span
-from .checkpoint import (checkpoint_exists, export_reference_checkpoint,
-                         restore_checkpoint, save_checkpoint)
+from .checkpoint import checkpoint_exists, restore_checkpoint
+from .encoder_trainer import EncoderTrainer, _round_up
 from .losses import ctc_loss
-from .schedule import MultiStepLR, warmup_lr
-from .state import FusedAdamW
-
-TEXT_CAP = 128   # characters an utterance may have on the device path
+from .schedule import MultiStepLR
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+class RecognitionTrainer(EncoderTrainer):
+    WITH_AUDIO = False
 
-
-class RecognitionTrainer:
     def __init__(self, model_cfg: Optional[ModelConfig] = None,
                  data_cfg: Optional[DataConfig] = None,
                  train_cfg: Optional[RecognitionTrainConfig] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  mesh=None):
-        self.model_cfg = model_cfg or ModelConfig()
-        self.data_cfg = data_cfg or DataConfig()
-        self.train_cfg = train_cfg or RecognitionTrainConfig()
-        self.mesh = mesh
-        self.device = mesh.device if mesh is not None \
-            else resolve_device(device)
+        super().__init__(model_cfg, data_cfg,
+                         train_cfg or RecognitionTrainConfig(), device, mesh)
         self.text_transform = TextTransform()
         # blank = the index after the last character
         # (reference recognition_model.py:33)
         self.blank_id = len(self.text_transform.chars)
-        self.model: Optional[EMGEncoder] = None
-        self.optimizer: Optional[FusedAdamW] = None
-        self.generator: Optional[torch.Generator] = None
         self._lm = None
         self._warned_no_lm = False
 
-    def init_state(self, seed: int = 0) -> EMGEncoder:
-        """Random weights from ``seed``, zeroed AdamW moments and
-        accumulator, and the step generator from ``seed + 1``. With
-        ``start_training_from``, the weights of that reference-layout
-        ``model.pt`` that match are loaded over the random ones."""
-        model = EMGEncoder(self.blank_id + 1, None, self.model_cfg)
-        model.init_weights(torch.Generator().manual_seed(seed))
-        if self.train_cfg.start_training_from:
-            model.load_state_dict(torch.load(
-                self.train_cfg.start_training_from, map_location="cpu",
-                weights_only=True), strict=False)
-        if self.mesh is not None:
-            model.shard(self.mesh)
-        self.model = model.to(self.device)
-        self.optimizer = FusedAdamW(
-            self.model.parameters(), weight_decay=self.train_cfg.l2,
-            moment_dtype=getattr(torch, self.train_cfg.moment_dtype),
-            grad_accum=self.train_cfg.grad_accum,
-            grad_sync=None if self.mesh is None else data_sync(self.mesh))
-        self.generator = torch.Generator().manual_seed(seed + 1)
-        return self.model
+    def _heads(self) -> Tuple[int, Optional[int]]:
+        return self.blank_id + 1, None
 
-    # ---------------- batches -----------------------------------------
-    def _cache_caps(self) -> dict:
-        """The fixed shapes of a batch, packed or gathered: the frames of
-        ``max_batch_len`` raw samples in chunks, plus 2, rounded up to the
-        chunk bucket (64 chunks of 200 frames at the defaults)."""
-        d = self.data_cfg
-        frames_cap = int(self.train_cfg.max_batch_len * (516.79 / 1000.0)
-                         / 6.0)
-        cb = _round_up(d.chunk_bucket, self.data_parallel)
-        return dict(n_chunks=_round_up(-(-frames_cap // d.seq_len) + 2, cb),
-                    seq_len=d.seq_len, t_cap=d.t_cap, text_cap=TEXT_CAP)
-
-    @property
-    def data_parallel(self) -> int:
-        return 1 if self.mesh is None else self.mesh.data_parallel
-
-    @property
-    def utt_cap(self) -> int:
-        return _round_up(self.data_cfg.utt_cap, self.data_parallel)
-
-    def _pack(self, examples: List[dict]) -> PackedBatch:
-        d, dp = self.data_cfg, self.data_parallel
-        fixed_chunks = fixed_utts = fixed_t = None
-        if d.fixed_shapes:
-            fixed_t = d.t_cap
-            fixed_utts = self.utt_cap
-            fixed_chunks = self._cache_caps()["n_chunks"]
-        return pack_batch(examples, seq_len=d.seq_len,
-                          chunk_bucket=_round_up(d.chunk_bucket, dp),
-                          utt_bucket=_round_up(8, dp),
-                          with_audio=False, fixed_chunks=fixed_chunks,
-                          fixed_utts=fixed_utts, fixed_t=fixed_t)
-
-    def _cache_fits(self, corpus: DeviceCorpus, ids: Sequence[int]) -> bool:
-        """True when a batch fits the caps of on-device assembly."""
-        caps, ids = self._cache_caps(), list(ids)
-        return not (
-            len(ids) > self.utt_cap
-            or int(corpus.feat_len_host[ids].sum())
-            > caps["n_chunks"] * caps["seq_len"]
-            or int(corpus.feat_len_host[ids].max(initial=0)) > caps["t_cap"]
-            or int(corpus.text_len_host[ids].max(initial=0))
-            > caps["text_cap"])
-
-    def build_corpus(self, dataset) -> Optional[DeviceCorpus]:
-        return build_training_corpus(dataset, self.data_cfg, self.device)
+    def _grad_accum(self) -> int:
+        return self.train_cfg.grad_accum
 
     # ---------------- steps -------------------------------------------
-    def _step(self, db: DeviceBatch, lr: float) -> torch.Tensor:
-        if self.model is None:
-            raise RuntimeError("call init_state() before a training step")
-        for p in self.model.parameters():
-            p.grad = None
-        with deterministic_cudnn(), \
-                step_precision(self.model.compute_dtype):
-            raw = db.raw_emg
-            if self.mesh is not None:
-                first, count = self.mesh.rows(raw.shape[0])
-                raw = raw[first: first + count]
-            logits = self.model(raw, train=True, generator=self.generator)
-            if self.mesh is not None:
-                logits = all_gather(logits, self.mesh.data_group, 0, "slice")
-            with span("ssp.loss"):
-                loss = ctc_loss(torch.log_softmax(logits, dim=-1), db,
-                                self.blank_id)
-            with span("ssp.backward"):
-                loss.backward()
-        self.optimizer.step(lr)
-        return loss.detach()
+    def _train_loss(self, out, db: DeviceBatch, n_silent: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        loss = ctc_loss(torch.log_softmax(out, dim=-1), db, self.blank_id)
+        return loss, loss.detach()
 
-    def train_step(self, batch: PackedBatch, lr: float) -> torch.Tensor:
-        """One micro-step on ``batch`` at learning rate ``lr``; returns the
-        loss on the device. Each parameter's ``.grad`` holds this
-        micro-step's gradient afterwards."""
-        return self._step(upload(batch, self.device), lr)
-
-    def train_step_ids(self, corpus: DeviceCorpus, ids: Sequence[int],
-                       lr: float) -> Optional[torch.Tensor]:
-        """One micro-step on the corpus utterances ``ids``, their batch
-        gathered on the device, equal to ``_pack`` of the same examples.
-        Returns None, and steps nothing, when the batch exceeds the fixed
-        caps; the caller then packs it on the host."""
-        with span("ssp.step"):
-            if not self._cache_fits(corpus, ids):
-                return None
-            caps, u_cap = self._cache_caps(), self.utt_cap
-            ids = corpus.order_silent_first(ids)
-            with span("ssp.assemble"):
-                utt_ids = torch.zeros(u_cap, dtype=torch.int64)
-                utt_ids[: len(ids)] = torch.as_tensor(ids, dtype=torch.int64)
-                if self.device.type == "cuda":
-                    utt_ids = utt_ids.pin_memory()
-                utt_ids = utt_ids.to(self.device, non_blocking=True)
-                valid = torch.arange(u_cap, device=self.device) < len(ids)
-                db = assemble_batch(corpus.arrays, utt_ids, valid,
-                                    with_audio=False, **caps)
-            return self._step(db, lr)
+    @staticmethod
+    def _step_loss(result: torch.Tensor) -> torch.Tensor:
+        return result
 
     # ---------------- inference ---------------------------------------
-    @torch.no_grad()
-    def _log_probs(self, example: dict, t_pad: int) -> torch.Tensor:
+    def _log_probs(self, example: dict, t_pad: Optional[int] = None
+                   ) -> torch.Tensor:
         """(T, 38) log-probs of one utterance zero-padded to ``t_pad``
-        frames, the padding masked out of attention, on the device."""
-        t = example["emg"].shape[0]
-        raw = np.zeros((1, t_pad * 8, example["raw_emg"].shape[1]),
-                       np.float32)
-        raw[0, : t * 8] = example["raw_emg"]
-        out = self.model(torch.from_numpy(raw).to(self.device), valid_len=t)
+        frames (``pad_single``), the padding masked out of attention, on
+        the device."""
+        out, t = self._forward_single(example, t_pad)
         return torch.log_softmax(out[0, :t], dim=-1)
 
     def predict_logits(self, example: dict) -> np.ndarray:
         """(T, 38) log-probs of one utterance, padded as the JAX trainer
         pads it (``round_up(max(T, 8), 32)`` frames)."""
-        if self.model is None:
-            raise RuntimeError("call fit() or init_state() first")
-        t = example["emg"].shape[0]
-        return self._log_probs(example, _round_up(max(t, 8), 32)).cpu(
-            ).numpy()
+        return self._log_probs(example).cpu().numpy()
 
     def batch_logits(self, examples: List[dict], group: int = 16
                      ) -> List[np.ndarray]:
@@ -352,40 +221,18 @@ class RecognitionTrainer:
         corpus = self.build_corpus(trainset)
 
         for epoch in range(start_epoch, epochs):
-            losses = []
             t0 = time.time()
-            for idx_batch in sampler:
-                # warmup counts micro-steps, as the reference counts batches
-                lr = float(np.float32(
-                    warmup_lr(global_step, cfg.learning_rate,
-                              cfg.learning_rate_warmup) * multistep.scale))
-                loss = None
-                if corpus is not None:
-                    loss = self.train_step_ids(corpus, idx_batch, lr)
-                if loss is None:  # no corpus, or over its caps: host path
-                    loss = self.train_step(
-                        self._pack([trainset[i] for i in idx_batch]), lr)
-                losses.append(loss)
-                global_step += 1
-            step_losses = (torch.stack(losses).cpu().double().numpy()
-                           if losses else np.zeros(0))
-            train_loss = float(np.mean(step_losses)) if losses \
-                else float("nan")
-            if losses and not np.isfinite(train_loss):
-                logging.error("non-finite training loss at epoch %d - "
-                              "stopping (checkpoint from the previous "
-                              "epoch is intact)", epoch + 1)
-                raise FloatingPointError("non-finite training loss")
+            # warmup counts micro-steps, as the reference counts batches
+            train_loss, steps = self._train_epoch(
+                epoch, trainset, sampler, corpus, global_step,
+                multistep.scale)
+            global_step += steps
             val_wer = self.evaluate_wer(devset)
             logging.info(f"finished epoch {epoch + 1} - training loss: "
                          f"{train_loss:.4f} validation WER: "
                          f"{val_wer * 100:.2f}")
             multistep.step()
             logging.info("epoch %d took %.1fs", epoch + 1, time.time() - t0)
-            save_checkpoint(
-                cfg.output_directory, self,
-                extra={"epoch": epoch + 1, "global_step": global_step,
-                       "lr_scale": multistep.scale})
-            export_reference_checkpoint(
-                self.model, os.path.join(cfg.output_directory, "model.pt"))
+            self._checkpoint({"epoch": epoch + 1, "global_step": global_step,
+                              "lr_scale": multistep.scale})
         return self.model

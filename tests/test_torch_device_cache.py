@@ -1,7 +1,8 @@
 """The port's device corpus: ``assemble_batch`` against the port's own
 ``pack_batch`` upload (bit for bit) and the JAX ``assemble_batch``, the
-budget, and ``train_step_ids`` against ``train_step`` on the same
-utterances."""
+budget, ``train_step_ids`` against ``train_step`` on the same
+utterances, and the one difference in the trainers' shared guard: only
+batches that carry audio need their voiced targets within ``t_cap``."""
 
 import numpy as np
 import pytest
@@ -12,10 +13,12 @@ import torch
 from silent_speech_tpu.data.device_cache import (
     DeviceCorpus as JaxCorpus, assemble_batch as jax_assemble_batch)
 from silent_speech_tpu_torch.config import (DataConfig, ModelConfig,
+                                            RecognitionTrainConfig,
                                             TransductionTrainConfig)
 from silent_speech_tpu_torch.data.device_cache import (
     DeviceCorpus, HBMBudgetError, assemble_batch, device_budget)
 from silent_speech_tpu_torch.data.packing import pack_batch, upload
+from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
 from silent_speech_tpu_torch.train.transduction import TransductionTrainer
 
 from torch_port_util import example_dict, one_torch_thread
@@ -106,15 +109,16 @@ def test_the_cpu_has_no_budget(monkeypatch):
     assert device_budget(torch.device("cpu"), 0.4) == 123
 
 
-def _trainer(dropout):
+def _trainer(dropout, trainer_cls=TransductionTrainer,
+             config_cls=TransductionTrainConfig):
     cfg = ModelConfig(model_size=32, num_layers=1, num_heads=2,
                       dim_feedforward=64, relative_positional_distance=8,
                       compute_dtype="float32", dropout=dropout)
     # frames_cap = int(4000·0.51679/6) = 344 → 4 + 2 = 6 chunks of 64,
     # rounded up to 8
     data = DataConfig(seq_len=64, chunk_bucket=4, utt_cap=8, t_cap=128)
-    trainer = TransductionTrainer(
-        cfg, data, TransductionTrainConfig(max_batch_len=4000), device="cpu")
+    trainer = trainer_cls(cfg, data, config_cls(max_batch_len=4000),
+                          device="cpu")
     trainer.init_state(3)
     return trainer
 
@@ -146,3 +150,25 @@ def test_train_step_ids_declines_a_batch_over_the_caps(examples):
     assert all(torch.equal(a, b) for a, b in
                zip(before, trainer.model.parameters()))
     assert trainer._cache_fits(corpus, [0, 1, 2])
+
+
+@pytest.mark.parametrize("trainer_cls,config_cls,taken", [
+    (TransductionTrainer, TransductionTrainConfig, False),
+    (RecognitionTrainer, RecognitionTrainConfig, True)],
+    ids=["transduction", "recognition"])
+def test_only_batches_with_audio_need_their_targets_within_t_cap(
+        examples, trainer_cls, config_cls, taken):
+    """A silent utterance whose voiced target (140 frames) is over
+    ``t_cap`` (128) while its EMG (55 frames) fits: the transducer, whose
+    batches carry that target, declines the batch; the recognizer, whose
+    batches carry no audio, steps on it."""
+    trainer = _trainer(0.0, trainer_cls, config_cls)
+    corpus = DeviceCorpus.build(examples + [example_dict(
+        np.random.default_rng(2), 55, True, t_tgt=140, sess=1)], "cpu")
+    out = trainer.train_step_ids(corpus, [5, 1], 1e-3)
+    assert trainer._cache_fits(corpus, [5, 1]) == taken
+    assert (out is not None) == taken
+    assert all((p.grad is not None) == taken
+               for p in trainer.model.parameters())
+    if taken:
+        assert torch.isfinite(out)
