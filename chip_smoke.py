@@ -70,13 +70,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and read just after: 6 forward and 6 backward attention launches, 1
    DTW launch (when the batch has silent utterances) and 36 dropout
    launches (30 masks, 6 ReLU-dropout backwards; every training path
-   counts them) a step. Every loss is
+   counts them) and 36 BatchNorm launches (6 statistics, 12 finalizes, 6
+   applies, 6 backward reductions and applies; 42 on a mesh; every
+   training path counts them, the eval forward none) a step. Every loss is
    finite and the weights and BatchNorm statistics move. One eval step.
    Two steps from one state on one batch must give torch.equal gradients
    (the step runs under cuDNN's deterministic algorithms), and the step
    with cuDNN's default algorithms is timed against it in turns. Then one
    f32 step with the kernels against the same step with the plain
-   versions swapped in (same seeds, so the same dropout masks), and the
+   versions swapped in (the attention, the DTW and the BatchNorm
+   composition; same seeds, so the same dropout masks), and the
    ``--compute_dtype float32`` path timed: one warm-up step and 3 steps
    (ms a step), their launches counted (6 K1f and 6 K1b a step on the f32
    routes: the kernels line's ``f32-train`` path; every step with TF32 off,
@@ -212,7 +215,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    also against a latency bound (the chain's length times its dependent
    FP32 operations a step at the maximum SM clock), the dropout kernels
    (``csrc/dropout.cu``) at 24,000 token rows of widths 3072 and 768, bf16
-   and f32, against their byte bound and the plain version, and
+   and f32, against their byte bound and the plain version, the AdamW
+   kernels, the BatchNorm kernels (``csrc/batchnorm.cu``) at the first
+   ResBlock's 120 x 768 x 800, bf16 and f32, forward and backward against
+   their byte bound, the plain composition and ``F.batch_norm``'s, and
    profile one forward and one training step (device busy time, idle
    share, kernels by time).
 
@@ -308,6 +314,18 @@ FILTER_INPUTS = os.path.join(ROOT, "build", "filtfilt_corpus_inputs.pt")
 # largest entry (the backward's sums in another order)
 # the dropout kernels' timing shape: the transduction step's token rows
 DROPOUT_ROWS = 120 * 200
+# the BatchNorm kernels' timing shape: a transduction micro-step's first
+# ResBlock (B, C, L); the fused passes against the plain composition:
+# outputs and input gradients by relative L2 (both round to the compute
+# dtype; a few pre-activations within rounding of 0 take the other side of
+# the ReLU, each ~3e-4 of the norm of a 120x768x200 tensor)
+BN_TIMED = (120, 768, 800)
+BN_L2 = 3e-3
+# a channel's dβ and dγ against the sum of its terms' magnitudes, Σ|g| and
+# Σ|g·x̂| (a flipped ReLU moves it by one term); running statistics by the
+# largest error over the largest entry
+BN_SUM_RTOL = 5e-4
+BN_RUNNING_RTOL = 2e-5
 CTC_NLL_RTOL = 1e-6
 CTC_GRAD_RTOL = 1e-5
 # the on-disk phase's corpus: the port's own generator, learnable signals,
@@ -1570,6 +1588,8 @@ def reset_launches():
     filtfilt_chain.launches = 0
     mask_scale.launches = relu_dropout.backward_launches = 0
     adamw_update.launches = adamw_fold.launches = 0
+    for counter in _batch_norm_counters():
+        counter.launches = 0
     full_fp32.steps = 0
 
 
@@ -1593,7 +1613,9 @@ def read_launches():
                      "dropout": mask_scale.launches,
                      "dropout_relu_bwd": relu_dropout.backward_launches,
                      "adamw_update": adamw_update.launches,
-                     "adamw_fold": adamw_fold.launches},
+                     "adamw_fold": adamw_fold.launches,
+                     **{name: counter.launches for name, counter in zip(
+                         BATCH_NORM_KEYS, _batch_norm_counters())}},
                     f32={"rel_attention_fwd": rel_attention.f32_launches,
                          "rel_attention_bwd":
                              rel_attention_bwd.f32_launches},
@@ -1628,8 +1650,36 @@ def launch_counts(**counts):
     """A ``read_launches()`` dict with ``counts`` and 0 for the rest."""
     names = ("rel_attention_fwd", "rel_attention_bwd", "dtw_align",
              "dtw_align_dp_only", "ctc", "ctc_bwd", "filtfilt_chain",
-             "dropout", "dropout_relu_bwd", "adamw_update", "adamw_fold")
+             "dropout", "dropout_relu_bwd", "adamw_update", "adamw_fold",
+             *BATCH_NORM_KEYS)
     return Launches({name: counts.get(name, 0) for name in names})
+
+
+# the conv stack's BatchNorm kernels (csrc/batchnorm.cu), by read_launches()
+# key: statistics, finalize (forward and backward), apply, the backward's
+# reduction and apply
+BATCH_NORM_KEYS = ("bn_stats", "bn_finalize", "bn_apply", "bn_bwd_reduce",
+                   "bn_bwd_apply")
+
+
+def _batch_norm_counters():
+    from silent_speech_tpu_torch.ops import batch_norm as bn
+
+    return (bn.batch_norm_stats, bn.batch_norm_finalize, bn.batch_norm_apply,
+            bn.batch_norm_bwd_reduce, bn.batch_norm_bwd_apply)
+
+
+def batch_norm_counts(steps: int, mesh: bool = False) -> dict:
+    """The BatchNorm kernels' launches of ``steps`` training steps or
+    micro-steps (``csrc/batchnorm.cu``): each of the three ResBlocks runs
+    two fused BNs (BN1 + ReLU; BN2 and the residual BN + add + ReLU), each
+    a statistics pass, a finalize and an apply forward and a reduction, a
+    finalize and an apply backward; a mesh sums the statistics over its
+    data axis between two finalizes (one more a BN): 36 a step, 42 on a
+    mesh. The eval forward launches none."""
+    bns = 6 * steps
+    return {"bn_stats": bns, "bn_finalize": (3 if mesh else 2) * bns,
+            "bn_apply": bns, "bn_bwd_reduce": bns, "bn_bwd_apply": bns}
 
 
 def dropout_counts(layers: int, steps: int) -> dict:
@@ -1656,7 +1706,9 @@ def train(card):
     import torch
     from silent_speech_tpu_torch.bench import example_sets
     from silent_speech_tpu_torch.config import ModelConfig
-    from silent_speech_tpu_torch.models import transformer
+    from silent_speech_tpu_torch.models import encoder, transformer
+    from silent_speech_tpu_torch.ops.batch_norm import (bn_add_relu_plain,
+                                                         bn_relu_plain)
     from silent_speech_tpu_torch.ops.dtw import (
         dtw_align_batch, dtw_align_batch_plain)
     from silent_speech_tpu_torch.ops.rel_attention import rel_attention_plain
@@ -1706,12 +1758,13 @@ def train(card):
         rel_attention_fwd=layers * n_steps,
         rel_attention_bwd=layers * n_steps,
         dtw_align=sum(1 for b in order if b.num_silent),
-        **dropout_counts(layers, n_steps), **adamw_counts(n_steps))
+        **dropout_counts(layers, n_steps), **batch_norm_counts(n_steps),
+        **adamw_counts(n_steps))
     log(f"[train] {n_steps} steps, launches {launches} (expected "
         f"{expected})")
     if launches != expected or not all(expected[k] for k in (
             "rel_attention_fwd", "rel_attention_bwd", "dtw_align",
-            "dropout", "dropout_relu_bwd", "adamw_update")):
+            "dropout", "dropout_relu_bwd", "adamw_update", "bn_stats")):
         raise AssertionError(f"training launches {launches}, expected "
                              f"{expected}, each kernel of the path above 0")
     loss_values = torch.stack(step_losses).cpu().numpy()
@@ -1759,9 +1812,19 @@ def train(card):
         captured["args"] = (costs.clone(), n1.clone(), n2.clone())
         return dtw_align_batch(costs, n1, n2, **kw)
 
+    def plain_bn_relu(c, bn, train, mesh=None, store=None):
+        return bn_relu_plain(c, bn, train, mesh)
+
+    def plain_bn_add_relu(c, bn, res, res_bn, train, mesh=None, store=None,
+                          forks=1):
+        out = bn_add_relu_plain(c, bn, res, res_bn, train, mesh)
+        return out if forks == 1 else (out, out)
+
     swaps = {"kernels": [(losses, "dtw_align_batch", capture)],
              "plain": [(losses, "dtw_align_batch", dtw_align_batch_plain),
-                       (transformer, "rel_attention", rel_attention_plain)]}
+                       (transformer, "rel_attention", rel_attention_plain),
+                       (encoder, "bn_relu", plain_bn_relu),
+                       (encoder, "bn_add_relu", plain_bn_add_relu)]}
     runs = {}
     for mode, mode_swaps in swaps.items():
         tr = TransductionTrainer(ModelConfig(compute_dtype="float32"))
@@ -1837,6 +1900,7 @@ def f32_train(card, batch, lr):
                              rel_attention_bwd=layers * n,
                              dtw_align=n if batch.num_silent else 0,
                              **dropout_counts(layers, n),
+                             **batch_norm_counts(n),
                              **adamw_counts(n))
     f32_expected = {"rel_attention_fwd": layers * n,
                     "rel_attention_bwd": layers * n}
@@ -2186,7 +2250,8 @@ def train_run(card, work):
         rel_attention_bwd=layers * len(steps),
         dtw_align=sum(1 for n in silent if n)
         + sum(1 for (batch, *_), _ in evals if batch.num_silent),
-        **dropout_counts(layers, len(steps)), **adamw_counts(len(steps)))
+        **dropout_counts(layers, len(steps)),
+        **batch_norm_counts(len(steps)), **adamw_counts(len(steps)))
     log(f"[fit] launches in the fit() and resume windows {fit_launches} "
         f"(expected {expected}: 6 forward and 6 backward attention and a "
         f"DTW a step, 6 forward attention and a DTW a validation batch)")
@@ -2381,6 +2446,7 @@ def recognition_run(card, work):
           and counts == launch_counts(rel_attention_fwd=layers,
                                       rel_attention_bwd=layers, ctc=1,
                                       ctc_bwd=1, **dropout_counts(layers, 1),
+                                      **batch_norm_counts(1),
                                       **adamw_counts(0, 1)))
     log(f"[rec] two micro-steps from one state on one batch: losses "
         f"{loss_a.item():.6f} and {loss_b.item():.6f}, all {len(grads_a)} "
@@ -2475,6 +2541,7 @@ def recognition_run(card, work):
         rel_attention_fwd=layers * (len(steps) + len(wers) * len(dev_set)),
         rel_attention_bwd=layers * len(steps), ctc=len(steps),
         ctc_bwd=len(steps), **dropout_counts(layers, len(steps)),
+        **batch_norm_counts(len(steps)),
         **adamw_counts(len(steps) // 2, len(steps)))
     losses = torch.stack(steps).cpu().numpy()
     emit = [i % 2 == 1 for i in range(len(steps))]
@@ -3048,7 +3115,8 @@ def disk_run(card, work):
                                     + len(devset)),
         rel_attention_bwd=layers * len(steps),
         dtw_align=sum(steps) + sum(evals), filtfilt_chain=1,
-        **dropout_counts(layers, len(steps)), **adamw_counts(len(steps)))
+        **dropout_counts(layers, len(steps)),
+        **batch_norm_counts(len(steps)), **adamw_counts(len(steps)))
     finished = log_lines(os.path.join(run, "log.txt"), "finished epoch")
     built = log_lines(os.path.join(run, "log.txt"), "building the device")
     skipped = log_lines(os.path.join(run, "log.txt"), "ASR WER skipped")
@@ -3199,6 +3267,7 @@ def disk_run(card, work):
         rel_attention_bwd=layers * len(steps), ctc=len(steps),
         ctc_bwd=len(steps), filtfilt_chain=1,
         **dropout_counts(layers, len(steps)),
+        **batch_norm_counts(len(steps)),
         **adamw_counts(len(steps) // 2, len(steps)))
     finished = log_lines(os.path.join(rec_run, "log.txt"), "finished epoch")
     log(f"[disk] recognition CLI, 1 epoch: {len(steps)} micro-step(s), "
@@ -3881,6 +3950,171 @@ def time_dropout(card, path_launches=None):
             "library_ms": None, "timings": timings}
 
 
+def time_batch_norm(card, path_launches=None):
+    """Phase 8, the conv stack's BatchNorm kernels (``csrc/batchnorm.cu``)
+    at a transduction micro-step's first ResBlock, B=120, C=768, L=800,
+    bf16 and f32: BN1 + ReLU and the block's end (BN2 and the residual BN +
+    add + ReLU), forward (statistics, finalize, apply) and backward
+    (reduction, finalize, apply). The fused output, input and parameter
+    gradients and running statistics against the plain composition's
+    (``batch_norm_plain`` and autograd, the output cast to the compute
+    dtype), printed as relative L2 and largest-error gaps, and two calls
+    torch.equal; then ms by CUDA events queued behind a sleeping kernel
+    (the device's time) against the byte bound (each (B, C, L) tensor read
+    or written once a pass: 3 + 5 forward, 5 + 8 backward), the plain
+    composition's forward and backward, and ``F.batch_norm`` in training
+    + ReLU forward and backward (cuDNN's BatchNorm of the compute-dtype
+    input, its running variance unbiased: a yardstick, not the same
+    function, never called by the port). Runs alone too (``path_launches``
+    None). Returns the kernels JSON entry."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+    from silent_speech_tpu_torch.ops import batch_norm as bn_ops
+
+    b, c, length = BN_TIMED
+    timings = []
+    for dtype in (torch.bfloat16, torch.float32):
+        item = torch.finfo(dtype).bits // 8
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        xs = [(torch.randn(b, c, length, device="cuda", generator=g) * 1.5
+               + 0.2).to(dtype) for _ in range(2)]
+        grad = torch.randn(b, c, length, device="cuda", generator=g).to(dtype)
+        bns = []
+        for i in range(2):
+            bn = torch.nn.BatchNorm1d(c, eps=1e-5).cuda()
+            with torch.no_grad():
+                bn.weight.uniform_(0.5, 1.5, generator=g)
+                bn.bias.normal_(0.0, 0.3, generator=g)
+            bns.append(bn)
+        count = float(b * length)
+        for name, n_x, fwd_passes, bwd_passes in (("bn_relu", 1, 3, 5),
+                                                  ("bn_bn_add_relu", 2, 5,
+                                                   8)):
+            ins, norms = xs[:n_x], bns[:n_x]
+
+            def run(fused):
+                leaves = [x.clone().requires_grad_() for x in ins]
+                mods = [copy.deepcopy(m) for m in norms]
+                if n_x == 1:
+                    fn = bn_ops.bn_relu if fused else bn_ops.bn_relu_plain
+                    out = fn(leaves[0], mods[0], True)
+                else:
+                    fn = (bn_ops.bn_add_relu if fused
+                          else bn_ops.bn_add_relu_plain)
+                    out = fn(leaves[0], mods[0], leaves[1], mods[1], True)
+                out = out.to(dtype)
+                out.backward(grad)
+                return ([out.detach()] + [x.grad for x in leaves],
+                        [t for m in mods
+                         for t in (m.weight.grad, m.bias.grad)],
+                        [t for m in mods
+                         for t in (m.running_mean, m.running_var)])
+
+            (k_t, k_p, k_r), (k2_t, k2_p, k2_r), (p_t, p_p, p_r) = (
+                run(True), run(True), run(False))
+            same = all(torch.equal(a, b_) for a, b_ in zip(
+                k_t + k_p + k_r, k2_t + k2_p + k2_r))
+            l2 = max(float((a.double() - r.double()).norm()
+                           / r.double().norm()) for a, r in zip(k_t, p_t))
+            plain_stats = bn_ops.statistics_plain(ins, norms)
+            sums = []
+            for i, x in enumerate(ins):
+                mean, rstd = (plain_stats[j, i * c:(i + 1) * c, None]
+                              for j in (0, 1))
+                xhat = (x.float() - mean) * rstd
+                sums += [(grad.float() * xhat).abs().sum((0, 2)),
+                         grad.float().abs().sum((0, 2))]
+            worst = max(float(((a - r).abs() / s_).max())
+                        for a, r, s_ in zip(k_p, p_p, sums))
+            running = max(float((a - r).abs().max() / r.abs().max())
+                          for a, r in zip(k_r, p_r))
+
+            def fwd():
+                part = bn_ops.batch_norm_stats(ins)
+                stats = bn_ops.batch_norm_finalize(part, c, norms, count)
+                return bn_ops.batch_norm_apply(ins, None, stats, dtype), stats
+
+            stats = fwd()[1]
+
+            def bwd():
+                part = bn_ops.batch_norm_bwd_reduce([grad], ins, None, stats)
+                tot, _ = bn_ops.batch_norm_bwd_finalize(part)
+                return bn_ops.batch_norm_bwd_apply([grad], ins, None, stats,
+                                                   tot, count)
+
+            leaves = [x.clone().requires_grad_() for x in ins]
+            mods = [copy.deepcopy(m) for m in norms]
+            if n_x == 1:
+                plain_out = bn_ops.bn_relu_plain(leaves[0], mods[0], True)
+            else:
+                plain_out = bn_ops.bn_add_relu_plain(leaves[0], mods[0],
+                                                     leaves[1], mods[1], True)
+            plain_out = plain_out.to(dtype)
+
+            def plain_fwd():
+                if n_x == 1:
+                    return bn_ops.bn_relu_plain(ins[0], mods[0], True)
+                return bn_ops.bn_add_relu_plain(ins[0], mods[0], ins[1],
+                                                mods[1], True)
+
+            def library():
+                leaves = [x.detach().requires_grad_() for x in ins]
+                out = sum(F.batch_norm(x, None, None, m.weight, m.bias, True,
+                                       0.1, m.eps) for x, m in zip(leaves,
+                                                                   norms))
+                F.relu(out).backward(grad)
+
+            fwd_ms, bwd_ms = queued_ms(fwd), queued_ms(bwd)
+            plain_fwd_ms = cuda_time_ms(plain_fwd, iters=5, warmup=1)
+            plain_bwd_ms = cuda_time_ms(lambda: plain_out.backward(
+                grad, retain_graph=True), iters=5, warmup=1)
+            library_ms = cuda_time_ms(library, iters=10, warmup=2)
+            tensor = b * c * length * item
+            for phase, ms, plain_ms, passes in (
+                    ("forward", fwd_ms, plain_fwd_ms, fwd_passes),
+                    ("backward", bwd_ms, plain_bwd_ms, bwd_passes)):
+                bound_ms = passes * tensor / HBM_BYTES_PER_S * 1e3
+                shape = f"{b}x{c}x{length} {str(dtype)[6:]}"
+                log(f"[time] {card} | batch_norm {name} {phase} "
+                    f"(csrc/batchnorm.cu) {shape}: kernels {ms:.4f} ms a "
+                    f"call (queued: the device's time, 3 launches), plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes: "
+                    f"{passes} x {tensor} B), {bound_ms / ms:.2%} of bound")
+                timings.append({"kernel": f"{name}_{phase}", "shape": shape,
+                                "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound_ms, "bound_by": "bytes"})
+            log(f"[time] {card} | batch_norm {name} {b}x{c}x{length} "
+                f"{str(dtype)[6:]}: against the plain composition, output "
+                f"and input gradients' relative L2 {l2:.3g} (tolerance "
+                f"{BN_L2}), parameter gradients' largest error over their "
+                f"channel's sum of magnitudes {worst:.3g} ({BN_SUM_RTOL}), "
+                f"running statistics' largest error over the largest entry "
+                f"{running:.3g} ({BN_RUNNING_RTOL}); two calls torch.equal: "
+                f"{same}; F.batch_norm training + ReLU, forward and "
+                f"backward (yardstick) {library_ms:.4f} ms against the "
+                f"kernels' {fwd_ms + bwd_ms:.4f} ms")
+            timings[-1]["library_ms"] = timings[-2]["library_ms"] = \
+                library_ms
+            if not (same and l2 <= BN_L2 and worst <= BN_SUM_RTOL
+                    and running <= BN_RUNNING_RTOL):
+                raise AssertionError(f"batch_norm {name} {dtype}: the "
+                                     f"kernels part from the plain "
+                                     f"composition or from themselves")
+            del plain_out, leaves, mods
+        del xs, grad
+    by_path = {path: sum(counts[k] for k in BATCH_NORM_KEYS)
+               for path, counts in (path_launches or {}).items()}
+    return {"name": "batch_norm", "route": "cuda",
+            "source": "silent_speech_tpu_torch/csrc/batchnorm.cu",
+            "replaces": "flax nn.BatchNorm in silent_speech_tpu/models/"
+                        "encoder.py",
+            "pallas": False, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "library_ms": None,
+            "timings": timings}
+
+
 def time_adamw(card, path_launches=None):
     """Phase 8, the AdamW kernels (``csrc/adamw.cu``) at the transduction
     model's 120 leaves: after two updates from the same gradients the
@@ -4192,7 +4426,8 @@ def mesh_run(card):
         expected = launch_counts(
             rel_attention_fwd=layers, rel_attention_bwd=layers,
             dtw_align=1 if batches[0].num_silent else 0,
-            **dropout_counts(layers, 1), **adamw_counts(1))
+            **dropout_counts(layers, 1), **batch_norm_counts(1, mesh=True),
+            **adamw_counts(1))
         if step_launches != expected:
             raise AssertionError(f"mesh step launches {step_launches}, "
                                  f"expected {expected}")
@@ -4267,7 +4502,7 @@ def mesh_run(card):
     if dist.is_initialized():
         raise AssertionError("the mesh phase left a process group")
     for k in ("rel_attention_fwd", "rel_attention_bwd", "dtw_align", "ctc",
-              "adamw_update", "adamw_fold"):
+              "adamw_update", "adamw_fold", "bn_stats"):
         if not dry_launches[k]:
             raise AssertionError(f"the dry run launched no {k}")
     mesh_launches = launch_counts()
@@ -4465,6 +4700,7 @@ def main() -> int:
                                      errs, build_s, stream_latency, group))
         kernels.append(time_dropout(card, path_launches))
         kernels.append(time_adamw(card, path_launches))
+        kernels.append(time_batch_norm(card, path_launches))
     del group
     lap("timings")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the card was "

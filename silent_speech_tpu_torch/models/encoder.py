@@ -13,8 +13,10 @@ The train forward (``train=True``) follows the JAX module's
 ``train=True``: one random left shift of the packed raw chunks per batch
 (``shift_raw``), BatchNorm on batch statistics with flax's running update
 (``running = 0.9·running + 0.1·batch``, the biased batch variance; torch's
-``F.batch_norm`` would take the unbiased one), and the transformer's
-dropout. All randomness comes from the caller's CPU ``torch.Generator``.
+``F.batch_norm`` would take the unbiased one; ``ops/batch_norm.py``, whose
+kernels fuse it with the ReLU and the residual add on the card), and the
+transformer's dropout. All randomness comes from the caller's CPU
+``torch.Generator``.
 
 ``shard(mesh)`` puts the model on a data × model mesh
 (``parallel/mesh.py``): each conv computes its model rank's output
@@ -41,7 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
-from ..parallel.collectives import all_gather, all_reduce_sum
+from ..ops.batch_norm import bn_add_relu, bn_relu
+from ..parallel.collectives import all_gather
 from ..utils.profiling import span
 from .transformer import TransformerEncoder, linear, xavier_normal_
 
@@ -50,34 +53,6 @@ def _conv(conv: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype
           ) -> torch.Tensor:
     return F.conv1d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
                     conv.stride, conv.padding)
-
-
-BN_MOMENTUM = 0.9  # flax's momentum: the running statistics' decay
-
-
-def _bn(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool,
-        mesh=None) -> torch.Tensor:
-    """BatchNorm over (B, L) of channels-first x, in float32. In training,
-    on the batch's statistics (var = E[x²] − E[x]², clipped at 0, the
-    means synced over ``mesh``'s data axis), and the running statistics
-    move toward them in place."""
-    x32 = x.float()
-    if not train:
-        return F.batch_norm(x32, bn.running_mean, bn.running_var,
-                            bn.weight, bn.bias, False, 0.0, bn.eps)
-    mean = x32.mean((0, 2))
-    mean_sq = (x32 * x32).mean((0, 2))
-    if mesh is not None:
-        mean, mean_sq = all_reduce_sum(torch.stack([mean, mean_sq]),
-                                       mesh.data_group) / mesh.data_parallel
-    var = (mean_sq - mean * mean).clamp_min(0.0)
-    with torch.no_grad():
-        for running, batch in ((bn.running_mean, mean),
-                               (bn.running_var, var)):
-            running.copy_(BN_MOMENTUM * running
-                          + (1.0 - BN_MOMENTUM) * batch)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (x32 - mean[:, None]) * mul[:, None] + bn.bias[:, None]
 
 
 def shift_raw(x_raw: torch.Tensor, r: int) -> torch.Tensor:
@@ -114,20 +89,31 @@ class ResBlock(nn.Module):
             self.res_norm = nn.BatchNorm1d(channels, eps=1e-5)
         self.mesh = None
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """x (B, C, L) → (B, channels, L/stride), float32; on a mesh,
-        the model rank's channels of the output."""
+    def forward(self, x: Union[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]],
+                train: bool = False, forks: int = 1
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """x (B, C, L) → (B, channels, L/stride): float32, but in the
+        compute dtype from the training forward of CUDA tensors off a mesh
+        (``ops/batch_norm.py``); on a mesh, the model rank's channels of
+        the output. ``x`` may be a pair of handles on one tensor (a block's
+        output with ``forks=2``): conv1 reads the first, the residual path
+        the second. ``forks=2`` returns such a pair."""
         cdt, mesh = self.compute_dtype, self.mesh
+        x, x_res = (x, x) if isinstance(x, torch.Tensor) else x
         sync = mesh if train else None
-        h = F.relu(_bn(self.bn1, _conv(self.conv1, x, cdt), train, sync))
+        # a model all-gather follows both BNs on a mesh: float32 there
+        store = cdt if mesh is None else torch.float32
+        h = bn_relu(_conv(self.conv1, x, cdt), self.bn1, train, sync, store)
         if mesh is not None:
             h = all_gather(h, mesh.model_group, 1, "sum")
-        h = _bn(self.bn2, _conv(self.conv2, h, cdt), train, sync)
-        res = x
-        if self.residual_path is not None:
-            res = _bn(self.res_norm, _conv(self.residual_path, x, cdt),
-                      train, sync)
-        return F.relu(h + res)
+        h = _conv(self.conv2, h, cdt)
+        if self.residual_path is None:
+            return bn_add_relu(h, self.bn2, x_res, None, train, sync, store,
+                               forks)
+        return bn_add_relu(h, self.bn2,
+                           _conv(self.residual_path, x_res, cdt),
+                           self.res_norm, train, sync, store, forks)
 
 
 class EMGEncoder(nn.Module):
@@ -193,11 +179,14 @@ class EMGEncoder(nn.Module):
         h = x_raw.transpose(1, 2)
         with span("ssp.conv_stack"):
             for i, block in enumerate(self.conv_blocks):
-                h = block(h, train)
+                last = i == len(self.conv_blocks) - 1
                 if mesh is not None:
-                    last = i == len(self.conv_blocks) - 1
-                    h = all_gather(h, mesh.model_group, 1,
+                    h = all_gather(block(h, train), mesh.model_group, 1,
                                    "slice" if last else "sum")
+                else:
+                    # the next block's conv1 and residual path each take
+                    # a handle on h
+                    h = block(h, train, 1 if last else 2)
         h = linear(self.w_raw_in, h.transpose(1, 2), cdt)
         h = self.transformer(h, valid_len, generator, b_offset)
         out = linear(self.w_out, h, cdt).float()

@@ -25,7 +25,7 @@ from silent_speech_tpu_torch.eval import export, server, streaming
 from silent_speech_tpu_torch.models.encoder import EMGEncoder
 from silent_speech_tpu_torch.models.hifigan import (HiFiGANConfig, Vocoder,
                                                     init_generator)
-from silent_speech_tpu_torch.ops import build
+from silent_speech_tpu_torch.ops import batch_norm, build
 from silent_speech_tpu_torch.parallel import collectives, launch, mesh
 from silent_speech_tpu_torch import graft_entry
 from silent_speech_tpu_torch.train.recognition import RecognitionTrainer
@@ -394,3 +394,20 @@ def test_a_mesh_issues_every_collective_even_for_one_rank():
         assert torch.equal(x.grad, torch.ones(3))
     finally:
         mesh.destroy()
+
+
+def test_the_batch_norm_kernels_take_every_tensor_off_the_cpu(monkeypatch):
+    # the module imports without a card; a training forward of a tensor
+    # off the CPU goes to the kernels' launch (here stopped at the
+    # library), never to the plain composition
+    def no_library():
+        raise RuntimeError("the kernel library was asked for")
+
+    monkeypatch.setattr(batch_norm, "_check", lambda *a: None)
+    monkeypatch.setattr(batch_norm, "_library", no_library)
+    bn = torch.nn.BatchNorm1d(4).to("meta")
+    c = torch.zeros(2, 4, 8, device="meta")
+    with pytest.raises(RuntimeError, match="kernel library was asked"):
+        batch_norm.bn_relu(c, bn, True)
+    with pytest.raises(RuntimeError, match="kernel library was asked"):
+        batch_norm.bn_add_relu(c, bn, c, bn, True)

@@ -1340,9 +1340,17 @@ def test_mesh_step_on_one_card_is_the_plain_step(card):
         meshed.init_state(0)
         batch = plain._pack(_transduction_examples())
         calls.count = 0
+        before = _batch_norm_launches()
         out_m = meshed.train_step(batch, 1e-3)
         assert calls.count > 0
+        mesh_bn = tuple(a - b for a, b in zip(_batch_norm_launches(), before))
+        before = _batch_norm_launches()
         out_p = plain.train_step(batch, 1e-3)
+        plain_bn = tuple(a - b for a, b in zip(_batch_norm_launches(),
+                                               before))
+        # the BatchNorm kernels on both; the mesh sums the statistics over
+        # its data axis between two finalizes
+        assert (mesh_bn, plain_bn) == ((6, 18, 6, 6, 6), (6, 12, 6, 6, 6))
         assert torch.equal(out_m.loss, out_p.loss)
         for a, b in zip(meshed.model.parameters(), plain.model.parameters()):
             assert torch.equal(a.grad, b.grad)
@@ -1656,3 +1664,249 @@ def test_recognition_micro_steps_fold_each_and_update_every_second(card):
     assert (adamw.adamw_update.launches - before[0],
             adamw.adamw_fold.launches - before[1]) == (1, 3)
     assert (trainer.optimizer.count, trainer.optimizer.mini_step) == (1, 1)
+
+
+# ---- the conv stack's BatchNorm (ops/batch_norm.py, csrc/batchnorm.cu) -----
+
+# the fused passes against the plain composition (batch_norm_plain and
+# autograd) on the card, both float32 inside: sums in another order, mean
+# and E[x²] as sums over n, the apply as one fma, the backward's formula
+# in place of autograd's chain. An element whose pre-activation lies within
+# rounding of 0 takes the other side of the ReLU in the two (about one in
+# 3e7 on an H100): its own output and input gradient move by O(1), its
+# channel's Σg by its g. So outputs and input gradients are compared by
+# relative L2 error (a flip costs ~3e-4 of a 120x768x200 tensor's norm;
+# measured on an H100 at 700 W: 8.9e-8 to 4.6e-4 in f32, 1.9e-5 to 2.4e-4
+# in bf16), parameter gradients channel by channel against the sum of their
+# terms' magnitudes, Σ|g| and Σ|g·x̂| (a flip moves a channel by one term,
+# ~6e-5 of it; measured up to 1.8e-5), and running statistics by the
+# largest error over the largest entry (no ReLU; measured 2.6e-7).
+BN_L2 = 3e-3
+BN_SUM_RTOL = 5e-4
+BN_RUNNING_RTOL = 2e-5
+BN_MODES = ("bn_relu", "bn_bn_add_relu", "bn_input_add_relu")
+
+
+def _bn_module(c, seed):
+    g = torch.Generator().manual_seed(seed)
+    bn = torch.nn.BatchNorm1d(c, eps=1e-5)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(c, generator=g) + 0.5)
+        bn.bias.normal_(0.0, 0.3, generator=g)
+        bn.running_mean.normal_(0.0, 1.0, generator=g)
+        bn.running_var.uniform_(0.5, 2.0, generator=g)
+    return bn.cuda()
+
+
+def _bn_inputs(mode, shape, dtype, seed=0, constant_channel=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def conv_out():
+        x = torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.2
+        if constant_channel is not None:
+            x[:, constant_channel] = 0.5
+        return x.to(dtype)
+
+    xs, bns, res = [conv_out()], [_bn_module(shape[1], seed + 1)], None
+    if mode == "bn_bn_add_relu":
+        xs.append(conv_out())
+        bns.append(_bn_module(shape[1], seed + 2))
+    elif mode == "bn_input_add_relu":
+        res = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    grads = [torch.randn(shape, device="cuda", generator=g).to(dtype)
+             for _ in range(2)]
+    return xs, bns, res, grads
+
+
+def _bn_run(mode, xs, bns, res, grads, fused, forks=1):
+    """Output (in the compute dtype), input gradients, parameter gradients
+    and running statistics of one forward and backward; with ``forks=2``
+    the output's two consumers hand back ``grads``' two gradients."""
+    import copy
+
+    from silent_speech_tpu_torch.ops.batch_norm import (
+        bn_add_relu, bn_add_relu_plain, bn_relu, bn_relu_plain)
+
+    xs = [x.clone().requires_grad_() for x in xs]
+    res = None if res is None else res.clone().requires_grad_()
+    bns = [copy.deepcopy(bn) for bn in bns]
+    dtype = xs[0].dtype
+    if mode == "bn_relu":
+        outs = (bn_relu(xs[0], bns[0], True) if fused
+                else bn_relu_plain(xs[0], bns[0], True))
+    else:
+        other = xs[1] if mode == "bn_bn_add_relu" else res
+        res_bn = bns[1] if mode == "bn_bn_add_relu" else None
+        outs = (bn_add_relu(xs[0], bns[0], other, res_bn, True, forks=forks)
+                if fused else
+                bn_add_relu_plain(xs[0], bns[0], other, res_bn, True))
+    # every consumer reads the compute dtype; the plain output's two
+    # consumers each cast it, so their gradients meet in float32
+    if not fused:
+        outs = tuple(outs.to(dtype) for _ in range(forks))
+    elif forks == 1:
+        outs = (outs,)
+    torch.autograd.backward(outs, grads[:forks])
+    dxs = [x.grad for x in xs] + ([] if res is None else [res.grad])
+    params = [t for bn in bns for t in (bn.weight.grad, bn.bias.grad)]
+    running = [t for bn in bns for t in (bn.running_mean, bn.running_var)]
+    return outs[0].detach(), dxs, params, running
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _bn_matches_plain(mode, shape, dtype, forks=1, **kw):
+    from silent_speech_tpu_torch.ops.batch_norm import statistics_plain
+
+    xs, bns, res, grads = _bn_inputs(mode, shape, dtype, **kw)
+    got = _bn_run(mode, xs, bns, res, grads, True, forks)
+    want = _bn_run(mode, xs, bns, res, grads, False, forks)
+    for a, b in zip([got[0]] + got[1], [want[0]] + want[1]):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        assert _rel_l2(a, b) <= BN_L2
+    # each channel's Σ|g| and Σ|g·x̂|, the scale of dβ and dγ
+    g = sum(t.float() for t in grads[:forks])
+    stats = statistics_plain(xs, bns)
+    c = shape[1]
+    for i, x in enumerate(xs):
+        mean, rstd = stats[0, i * c:(i + 1) * c], stats[1, i * c:(i + 1) * c]
+        xhat = (x.float() - mean[:, None]) * rstd[:, None]
+        dw, db = got[2][2 * i: 2 * i + 2]
+        ref_dw, ref_db = want[2][2 * i: 2 * i + 2]
+        assert ((dw - ref_dw).abs()
+                <= BN_SUM_RTOL * (g * xhat).abs().sum((0, 2))).all()
+        assert ((db - ref_db).abs() <= BN_SUM_RTOL * g.abs().sum((0, 2))).all()
+    for a, b in zip(got[3], want[3]):
+        assert float((a - b).abs().max() / b.abs().max()) <= BN_RUNNING_RTOL
+    return got, want
+
+
+@pytest.mark.parametrize("b", [120, 64])
+@pytest.mark.parametrize("length", [800, 400, 200])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode", BN_MODES[:2])
+def test_batch_norm_kernels_match_the_plain_composition(card, mode, dtype,
+                                                        length, b):
+    # the conv stack's shapes: C = 768, L = 800 / 400 / 200 by block
+    _bn_matches_plain(mode, (b, 768, length), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode", BN_MODES)
+def test_batch_norm_kernels_at_an_odd_length(card, mode, dtype):
+    # L = 37 is no whole number of 16-byte groups: element-wise loads, the
+    # last group of each row partial
+    _bn_matches_plain(mode, (6, 40, 37), dtype)
+
+
+@pytest.mark.parametrize("length", [200, 37])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode", BN_MODES[1:])
+def test_batch_norm_kernels_add_a_forked_output_s_two_gradients(
+        card, mode, dtype, length):
+    # a block's end feeds the next block's conv1 and residual path: two
+    # handles on one output, two gradients, added in float32 as the plain
+    # output's two casts add them
+    _bn_matches_plain(mode, (16, 96, length), dtype, forks=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_batch_norm_kernels_at_a_constant_channel(card, dtype):
+    # channel 3 holds one value, 0.5, whose sums are exact in any order:
+    # E[x²] − E[x]² is 0 in both, rstd 1/√ε, x̂ 0, and the channel's output
+    # one value (relu(β2 + β_res)). A channel whose difference rounds below
+    # 0 clips to this; its gradient's rule is held in float64 on the CPU
+    # (tests/test_torch_batch_norm.py), as the sign of such a rounding
+    # depends on the order of the sums
+    got, _ = _bn_matches_plain("bn_bn_add_relu", (16, 64, 200), dtype,
+                               constant_channel=3)
+    out = got[0][:, 3].float()
+    assert (out - out[0, 0]).abs().max() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode", BN_MODES)
+def test_batch_norm_kernels_are_bit_equal_between_calls(card, mode, dtype):
+    xs, bns, res, grads = _bn_inputs(mode, (120, 768, 200), dtype)
+    forks = 1 if mode == "bn_relu" else 2
+    first = _bn_run(mode, xs, bns, res, grads, True, forks)
+    second = _bn_run(mode, xs, bns, res, grads, True, forks)
+    for a, b in zip([first[0]] + first[1] + first[2] + first[3],
+                    [second[0]] + second[1] + second[2] + second[3]):
+        assert torch.equal(a, b)
+
+
+def test_batch_norm_rejects_what_the_kernels_do_not_take(card):
+    from silent_speech_tpu_torch.ops.batch_norm import bn_relu
+
+    bn = _bn_module(8, 0)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        bn_relu(torch.zeros(2, 8, 16, device="cuda", dtype=torch.float16),
+                bn, True)
+    with pytest.raises(ValueError, match="float32 parameters"):
+        bn_relu(torch.zeros(2, 8, 16, device="cuda"), _bn_module(8, 0).half(),
+                True)
+
+
+def _batch_norm_launches():
+    from silent_speech_tpu_torch.ops import batch_norm as bn
+
+    return tuple(f.launches for f in (
+        bn.batch_norm_stats, bn.batch_norm_finalize, bn.batch_norm_apply,
+        bn.batch_norm_bwd_reduce, bn.batch_norm_bwd_apply))
+
+
+def test_a_micro_step_of_each_trainer_launches_36_batch_norm_kernels(card):
+    # three ResBlocks, each two fused BNs: a statistics pass, a finalize and
+    # an apply forward, a reduction, a finalize and an apply backward; the
+    # eval forward launches none
+    examples = {"transduction": _transduction_examples(),
+                "recognition": _recognition_examples()}
+    for kind, trainer in (("transduction", _tiny_trainer("cuda")),
+                          ("recognition", _tiny_recognizer("cuda"))):
+        batch = trainer._pack(examples[kind])
+        trainer.train_step(batch, 1e-3)
+        torch.cuda.synchronize()
+        before = _batch_norm_launches()
+        trainer.train_step(batch, 1e-3)
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(_batch_norm_launches(), before))
+        assert counts == (6, 12, 6, 6, 6), (kind, counts)
+        before = _batch_norm_launches()
+        with torch.no_grad():
+            trainer.model(torch.as_tensor(batch.raw_emg[:2]).cuda())
+        torch.cuda.synchronize()
+        assert _batch_norm_launches() == before, kind
+
+
+def test_a_bf16_conv_stack_saves_no_float32_activation(card):
+    # what autograd keeps of the three ResBlocks' training forward: the
+    # compute-dtype conv outputs and inputs, weights and per-channel
+    # statistics, no float32 tensor the size of a channel's activations
+    cfg = ModelConfig(model_size=768, num_layers=1, num_heads=8,
+                      dim_feedforward=256, relative_positional_distance=16)
+    model = EMGEncoder(80, 48, cfg).init_weights(
+        torch.Generator().manual_seed(0)).cuda()
+    raw = torch.randn(8, 1600, 8, device="cuda")
+    saved = []
+
+    def pack(t):
+        saved.append((t.dtype, t.numel()))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        h = raw.transpose(1, 2)
+        for i, block in enumerate(model.conv_blocks):
+            h = block(h, True, 1 if i == 2 else 2)
+    assert h.dtype == torch.bfloat16
+    smallest = 8 * 768 * 200  # the last block's (B, C, L)
+    big_f32 = [n for dtype, n in saved
+               if dtype == torch.float32 and n >= smallest]
+    assert not big_f32, big_f32
